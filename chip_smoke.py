@@ -1,0 +1,383 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (``src/repro_torch``) on one CUDA card.
+
+    python3 chip_smoke.py          # from the repository root, one H100
+
+Phases, one JSON line each; any failure raises and exits non-zero:
+
+  1. environment: card, power limit, torch; build every kernel from the
+     sources in the checkout (nvcc, sm_90a) and print ptxas' report.
+  2. each kernel against its plain version on the card, at the shapes
+     the main path gives it and at edge cases, with stated tolerances;
+     kernel / plain / library times and the card's bound at the
+     MicroLlama-300M prefill shapes.
+  3. the main path: ``serve.generate`` on microllama-300m at full width
+     in bf16 (seeded random weights), 4 prompts of 512 tokens, 32 greedy
+     tokens; the flash kernel must launch once per layer.  Prefill and
+     decode times are ``generate``'s own (CUDA events).  Then the same
+     call sampling at temperature 1, twice: the tokens must repeat.
+  4. the server: ``DenseBatcher`` and ``ContinuousBatcher`` at full
+     width in f32 on one bursty trace; every request answered, no block
+     leak, greedy tokens equal across both arms and ``generate``.
+
+Then the ``kernels`` summary line, the card's name and power limit, and
+last ``{"ok": true, "device": {...}}``.  Without a card (or without the
+repository around it) it exits non-zero and prints no result.
+
+TF32 is switched off for matmuls and cuDNN, so every f32 product runs in
+full f32 and f32 comparisons measure the kernels, not TF32 rounding.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s and
+# FLOP/s by input type (bf16 on the tensor cores, f32 on the CUDA cores)
+PEAK_BYTES = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# tests/test_kernels.py:_tol
+TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+FLASH_SRC = "src/repro_torch/csrc/flash_attention.cu"
+FLASH_TPU = "src/repro/kernels/flash_attention/kernel.py:30"
+
+
+def emit(phase: str, **kw) -> None:
+    print(json.dumps({"phase": phase, **kw}), flush=True)
+
+
+def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls,
+    from CUDA events, after ``warmup`` calls (inputs stay in L2)."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def visible_pairs(S: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the masks leave visible: the work this call
+    needs."""
+    i = torch.arange(S, dtype=torch.int64)
+    hi = i + 1 if causal else torch.full_like(i, S)
+    lo = torch.clamp(i - window + 1, min=0)
+    return int(torch.clamp(hi - lo, min=0).sum())
+
+
+def flash_bound(q, k, v, causal: bool, window: int):
+    """(bound_ms, bound_by, bytes, flops): each input read once, the
+    output written once, against 4*hd FLOPs per visible pair and head."""
+    B, S, H, hd = q.shape
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    flops = 4 * B * H * hd * visible_pairs(S, causal, window)
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[q.dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
+
+
+def phase_env():
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()[0]
+    emit("env", nvidia_smi=smi, torch=torch.__version__,
+         cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
+         device_count=torch.cuda.device_count(),
+         allow_tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
+         allow_tf32_cudnn=torch.backends.cudnn.allow_tf32)
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    built = _build.build("flash_attention")
+    ptxas = [line.strip() for line in built.log.splitlines()
+             if "registers" in line or "spill" in line]
+    emit("build", kernel="flash_attention", source=FLASH_SRC,
+         nvcc_seconds=built.seconds,
+         build_and_load_seconds=time.perf_counter() - t0,
+         library=str(built.path.relative_to(ROOT)), ptxas=ptxas)
+    return smi
+
+
+def phase_kernels():
+    """Flash kernel against its plain version; times at the MicroLlama
+    prefill shapes.  Returns the summary of the main path's shape."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [  # (B, S, H, Hk, hd, window, causal, dtype, timed)
+        (4, 512, 16, 4, 64, None, True, bf16, True),   # MicroLlama B=4
+        (4, 512, 16, 4, 64, None, True, f32, False),
+        (1, 2048, 16, 4, 64, None, True, bf16, True),  # MicroLlama B=1
+        (2, 200, 4, 2, 64, None, True, f32, False),    # ragged S
+        (2, 256, 4, 1, 64, 100, True, f32, False),
+        (1, 384, 6, 3, 128, 64, True, f32, False),
+        (1, 96, 4, 4, 80, None, True, f32, False),
+        (1, 128, 8, 8, 32, None, True, f32, False),    # hd <= 32
+        (1, 192, 4, 2, 64, None, False, f32, False),   # padded bidirectional
+    ]
+    summary = None
+    for B, S, H, Hk, hd, window, causal, dt, timed in cases:
+        gen = torch.Generator(device="cuda").manual_seed(S + hd)
+        q, k, v = (torch.randn((B, S, h, hd), generator=gen, device="cuda")
+                   .to(dt) for h in (H, Hk, Hk))
+        w = ops.normalize_window(window)
+        out = ops.flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        ref = flash_attention_ref(q, k, v, causal=causal, window=w)
+        err = (out.float() - ref.float()).abs().max().item()
+        ok = torch.allclose(out.float(), ref.float(), rtol=TOL[dt],
+                            atol=TOL[dt])
+        row = dict(shape=[B, S, H, Hk, hd], window=window, causal=causal,
+                   dtype=str(dt).replace("torch.", ""), max_abs_err=err,
+                   tol=TOL[dt], ok=ok)
+        if timed:
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                 enable_gqa=True)
+            bound_ms, bound_by, nbytes, flops = flash_bound(q, k, v, causal, w)
+            row.update(
+                kernel_ms=cuda_ms(lambda: ops.flash_attention(
+                    q, k, v, causal=causal, window=window)),
+                plain_ms=cuda_ms(lambda: flash_attention_ref(
+                    q, k, v, causal=causal, window=w), iters=10),
+                library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, enable_gqa=True)),
+                library_max_abs_err=(lib.transpose(1, 2).float()
+                                     - out.float()).abs().max().item(),
+                bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                flops=flops)
+            if summary is None:
+                summary = row
+        emit("kernel_check", kernel="flash_attention", **row)
+        if not ok:
+            raise AssertionError(f"flash kernel disagrees with its plain "
+                                 f"version: {row}")
+    return summary
+
+
+@torch.inference_mode()
+def phase_generate():
+    from repro_torch import models, serve
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops
+
+    cfg = get_config("microllama-300m")                   # bf16, full width
+    B, S, new = 4, 512, 32
+    t0 = time.perf_counter()
+    params = models.init_params(cfg, 0)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                            device="cuda")
+    serve.generate(params, cfg, prompts, max_new_tokens=2)  # warm-up
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    def check_ids(res):
+        toks = torch.tensor(res.tokens)
+        if toks.shape != (B, new) or toks.min() < 0 \
+                or toks.max() >= cfg.vocab_size:
+            raise AssertionError(f"bad generated ids, shape "
+                                 f"{tuple(toks.shape)}")
+
+    def times(res, wall_s):
+        return dict(wall_s=wall_s, prefill_ms=res.prefill_ms,
+                    decode_ms=res.decode_ms,
+                    decode_ms_per_step=res.decode_ms / (new - 1),
+                    prefill_tok_per_s=B * S / res.prefill_ms * 1e3,
+                    decode_tok_per_s=B * (new - 1) / res.decode_ms * 1e3)
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.launches = 0
+    t0 = time.perf_counter()
+    res = serve.generate(params, cfg, prompts, max_new_tokens=new)
+    wall_s = time.perf_counter() - t0        # ends in a device->host copy
+    launches = ops.launches
+    peak = torch.cuda.max_memory_allocated()
+    if launches != cfg.num_layers:
+        raise AssertionError(f"generate's prefill launched the flash kernel "
+                             f"{launches} times, expected {cfg.num_layers}")
+    check_ids(res)
+
+    lk, _ = models.prefill(params, prompts, cfg, S + new, use_kernels=True,
+                           last_only=True)
+    lp, _ = models.prefill(params, prompts, cfg, S + new, use_kernels=False,
+                           last_only=True)
+    lk, lp = lk[:, -1].float(), lp[:, -1].float()
+    if not bool(torch.isfinite(lk).all()):
+        raise AssertionError("non-finite logits from the kernel prefill")
+    err = (lk - lp).abs().max().item()
+    scale = lp.abs().max().item()
+    # bf16: the plain path rounds softmax probabilities to bf16 before
+    # the PV product, the kernel keeps them in f32; 12 layers of bf16
+    # residuals carry that difference to the logits
+    tol = 5e-2 * scale
+    emit("generate", arch=cfg.name, dtype=cfg.dtype, batch=B, prompt=S,
+         new_tokens=new, setup_s=setup_s, flash_launches=launches,
+         launches_per_prefill=launches, **times(res, wall_s),
+         max_memory_allocated=peak, last_logits_max_abs_err=err,
+         last_logits_scale=scale, tol=tol,
+         greedy_next_token_agrees=int((lk.argmax(-1) == lp.argmax(-1)).sum()),
+         first_tokens=[row[:8] for row in res.tokens])
+    if err > tol:
+        raise AssertionError(f"kernel prefill logits differ from the plain "
+                             f"prefill by {err} > {tol}")
+
+    # temperature sampling: noise drawn on the card from per-(seed, row,
+    # step) generators, so the same call gives the same tokens
+    runs = []
+    for _ in range(2):
+        ops.launches = 0
+        t0 = time.perf_counter()
+        r = serve.generate(params, cfg, prompts, max_new_tokens=new,
+                           temperature=1.0, seed=0)
+        runs.append((r, time.perf_counter() - t0, ops.launches))
+        check_ids(r)
+    same = runs[0][0].tokens == runs[1][0].tokens
+    emit("generate_sampled", temperature=1.0, seed=0, reproducible=same,
+         flash_launches=[n for _, _, n in runs],
+         runs=[times(r, w) for r, w, _ in runs],
+         positions_equal_to_greedy=sum(
+             x == y for a, g in zip(runs[0][0].tokens, res.tokens)
+             for x, y in zip(a, g)),
+         first_tokens=[row[:8] for row in runs[0][0].tokens])
+    if not same:
+        raise AssertionError("sampled generate is not reproducible from "
+                             "its seed")
+    if any(n != cfg.num_layers for _, _, n in runs):
+        raise AssertionError("sampled generate's prefill did not launch the "
+                             "flash kernel once per layer")
+    return launches
+
+
+def _first_divergence(a, b):
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return i
+    return None if len(a) == len(b) else min(len(a), len(b))
+
+
+@torch.inference_mode()
+def phase_server():
+    from repro_torch import models, serve
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.serve import traffic
+    from repro_torch.serve.scheduler import ContinuousBatcher, DenseBatcher
+
+    cfg = get_config("microllama-300m").with_overrides(dtype="float32")
+    params = models.init_params(cfg, 0)
+    spec = traffic.make_arrivals("bursty", n_requests=8, prompt_lo=64,
+                                 prompt_hi=512, new_lo=8, new_hi=32)
+    cache_len = 512 + 32
+    arms = {
+        "dense": DenseBatcher(params, cfg, n_slots=4, cache_len=cache_len),
+        "paged": ContinuousBatcher(params, cfg, n_slots=4,
+                                   cache_len=cache_len, block_size=16,
+                                   chunk_size=128),
+    }
+    outs, launches = {}, {}
+    for name, batcher in arms.items():
+        arrivals = traffic.materialize(spec, cfg.vocab_size)
+        ops.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = batcher.run_trace(arrivals)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[name] = ops.launches
+        outs[name] = {r.rid: r.generated for _, r in arrivals}
+        emit("server", arm=name, dtype=cfg.dtype, wall_s=wall,
+             flash_launches=ops.launches, report=rep.__dict__)
+        if rep.requests_finished != len(spec) or rep.requests_pending:
+            raise AssertionError(f"{name}: not every request was answered")
+    if not arms["paged"].pool.no_leak():
+        raise AssertionError("paged arm leaked KV blocks")
+    if launches["dense"] <= 0:
+        raise AssertionError("the dense arm's prefill never ran the kernel")
+
+    prompts = {a.rid: r.tokens for a, (_, r) in
+               zip(spec, traffic.materialize(spec, cfg.vocab_size))}
+    excused = []
+    for a in spec:
+        want = serve.generate(params, cfg, [prompts[a.rid]],
+                              max_new_tokens=a.max_new_tokens).tokens[0]
+        for arm in ("dense", "paged"):
+            got = outs[arm][a.rid]
+            i = _first_divergence(got, want)
+            if i is None:
+                continue
+            # a near-tie may flip under f32 summation order: measure the
+            # top-2 gap of the logits at the first divergent position
+            seq = torch.tensor([prompts[a.rid] + want[:i]], device="cuda")
+            logits, _ = models.prefill(params, seq, cfg, seq.shape[1],
+                                       use_kernels=True, last_only=True)
+            top2 = torch.topk(logits[0, -1].float(), 2).values
+            gap = (top2[0] - top2[1]).item()
+            row = dict(rid=a.rid, arm=arm, position=i, top2_gap=gap)
+            if gap >= 1e-3:
+                raise AssertionError(f"greedy tokens diverge away from a "
+                                     f"near-tie: {row}")
+            excused.append(row)
+    emit("server_parity", requests=len(spec), excused_near_ties=excused,
+         matches_generate=len(excused) == 0)
+
+    # f32: kernel prefill against plain prefill at full width, one request
+    seq = torch.tensor([prompts[spec[0].rid]], device="cuda")
+    lk, _ = models.prefill(params, seq, cfg, seq.shape[1], use_kernels=True,
+                           last_only=True)
+    lp, _ = models.prefill(params, seq, cfg, seq.shape[1], use_kernels=False,
+                           last_only=True)
+    err = (lk - lp).abs().max().item()
+    # f32 sums in another order through 12 layers; logits are O(5)
+    emit("prefill_f32", prompt=seq.shape[1], last_logits_max_abs_err=err,
+         tol=1e-4)
+    if err > 1e-4:
+        raise AssertionError(f"f32 kernel prefill differs from the plain "
+                             f"prefill by {err}")
+    return launches
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    smi = phase_env()
+    flash = phase_kernels()
+    launches = phase_generate()
+    phase_server()
+    print(json.dumps({"kernels": [{
+        "name": "flash_attention", "route": "cuda", "source": FLASH_SRC,
+        "replaces": FLASH_TPU, "launches": launches,
+        "max_abs_err": flash["max_abs_err"], "ms": flash["kernel_ms"],
+        "plain_ms": flash["plain_ms"], "bound_ms": flash["bound_ms"],
+        "bound_by": flash["bound_by"], "library_ms": flash["library_ms"],
+        "shape": flash["shape"], "dtype": flash["dtype"]}],
+        "seconds": time.perf_counter() - t0}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,14 @@
+"""stablelm-1.6b [dense].  [hf:stabilityai/stablelm-2-1_6b]"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="stablelm-1.6b",
+    arch_type="dense",
+    num_layers=24,
+    d_model=2048,
+    num_heads=32,
+    num_kv_heads=32,
+    d_ff=5632,
+    vocab_size=100_352,
+    citation="hf:stabilityai/stablelm-2-1_6b",
+)

@@ -1,0 +1,79 @@
+"""Parameter conversion between the JAX package's pytree and ``DecoderLM``.
+
+The JAX tree is nested dicts of numpy arrays with the layers stacked on
+a leading L axis (``jax.device_get(repro.models.init_params(...))``).
+Both sides keep the ``(d_in, d_out)`` orientation, so a conversion is a
+copy.  numpy has no bfloat16: bf16 arrays arrive as ml_dtypes' bfloat16
+(read through their 16-bit pattern) and leave as float32, which holds
+every bf16 value exactly.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.lm import DecoderLM, _dtype
+
+
+def _to_tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16))
+        t = t.view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.ascontiguousarray(a))
+    return t.to(device=device, dtype=dtype)
+
+
+def _unstack(tree, i: int, dtype, device):
+    if isinstance(tree, dict):
+        return {k: _unstack(v, i, dtype, device) for k, v in tree.items()}
+    return _to_tensor(np.asarray(tree)[i], dtype, device)
+
+
+def params_from_numpy(tree: Dict, cfg: ModelConfig, device=None) -> DecoderLM:
+    """JAX parameter pytree (numpy leaves, stacked layers) -> DecoderLM
+    in ``cfg.dtype`` on ``device`` (``cuda`` unless named)."""
+    dev = resolve_device(device)
+    dt = _dtype(cfg)
+    out = {
+        "embed": _to_tensor(tree["embed"], dt, dev),
+        "layers": [_unstack(tree["layers"], i, dt, dev)
+                   for i in range(cfg.num_layers)],
+        "final_norm": _to_tensor(tree["final_norm"], dt, dev),
+    }
+    if not cfg.tie_embeddings:
+        out["lm_head"] = _to_tensor(tree["lm_head"], dt, dev)
+    return DecoderLM(cfg, out)
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy()
+
+
+def _stack(layer_trees):
+    first = layer_trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in layer_trees]) for k in first}
+    return np.stack(layer_trees)
+
+
+def params_to_numpy(params: DecoderLM) -> Dict:
+    """DecoderLM -> the JAX pytree layout (numpy leaves, stacked layers)."""
+    layers = [{"attn_norm": _numpy(l.attn_norm),
+               "attn": {k: _numpy(v) for k, v in l.attn.items()},
+               "mlp_norm": _numpy(l.mlp_norm), "gate": _numpy(l.gate),
+               "up": _numpy(l.up), "down": _numpy(l.down)}
+              for l in params.layers]
+    tree = {"embed": _numpy(params.embed), "layers": _stack(layers),
+            "final_norm": _numpy(params.final_norm)}
+    if params.lm_head is not None:
+        tree["lm_head"] = _numpy(params.lm_head)
+    return tree

@@ -1,0 +1,78 @@
+"""ctypes binding of the Hopper flash-attention kernel
+(``repro_torch/csrc/flash_attention.cu``).
+
+``flash_attention_fwd`` checks its inputs, allocates the output with
+``torch.empty`` and launches the kernel on PyTorch's current stream.  It
+takes CUDA tensors only and raises on anything the kernel does not
+take; the library is built at the first call (``kernels._build``).
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels._build import build
+
+_DTYPE_TAG = {torch.float32: 0, torch.bfloat16: 1}
+_INT32_MAX = 2 ** 31 - 1
+_fn = None
+
+
+def _entry():
+    global _fn
+    if _fn is None:
+        fn = build("flash_attention").lib.repro_flash_attention_fwd
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [P, P, P, P, I, I, I, I, I, I, I, ctypes.c_float, I, P]
+        fn.restype = I
+        _fn = fn
+    return _fn
+
+
+def check_inputs(q, k, v) -> None:
+    """Raise ValueError on anything the kernel does not take."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device.type != "cuda" or t.device != q.device:
+            raise ValueError(f"{name} must be on q's CUDA device, got "
+                             f"{t.device}")
+        if t.dtype != q.dtype or t.dtype not in _DTYPE_TAG:
+            raise ValueError(f"{name}: dtype {t.dtype}; the kernel takes "
+                             "one of float32/bfloat16 for all of q, k, v")
+        if t.dim() != 4 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous 4-d tensor")
+    B, S, H, hd = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[1] != S \
+            or k.shape[3] != hd:
+        raise ValueError(f"k/v shape {tuple(k.shape)}/{tuple(v.shape)} "
+                         f"do not match q {tuple(q.shape)}")
+    Hk = k.shape[2]
+    if H % Hk:
+        raise ValueError(f"H={H} is not a multiple of Hk={Hk}")
+    if hd > 128 or hd % 8:
+        raise ValueError(f"head_dim={hd}: the kernel takes hd <= 128 with "
+                         "hd % 8 == 0")
+    if B * S * H * hd >= 2 ** 31 or B * S >= 2 ** 31:
+        raise ValueError("tensor too large for the kernel's int sizes")
+
+
+def flash_attention_fwd(q, k, v, *, causal: bool, window: int):
+    """q (B,S,H,hd), k/v (B,S,Hk,hd) CUDA tensors -> o (B,S,H,hd).
+
+    Keys with kpos <= qpos - window are masked (window >= 2**31 - 1 is
+    clamped: it masks nothing either way)."""
+    check_inputs(q, k, v)
+    B, S, H, hd = q.shape
+    o = torch.empty_like(q)
+    fn = _entry()
+    with torch.cuda.device(q.device):
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                B, S, H, k.shape[2], hd, int(bool(causal)),
+                max(min(int(window), _INT32_MAX), -_INT32_MAX),
+                1.0 / math.sqrt(hd), _DTYPE_TAG[q.dtype],
+                torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
+                           f"error {rc}")
+    return o

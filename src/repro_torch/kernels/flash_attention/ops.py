@@ -1,0 +1,44 @@
+"""Public flash-attention wrapper: window normalization and dispatch by
+device.
+
+A CUDA tensor goes to the Hopper kernel (``kernel.flash_attention_fwd``)
+or the call raises; a CPU tensor goes to the plain version
+(``ref.flash_attention_ref``).  Nothing falls back from one to the
+other.  Forward only, like the JAX wrapper.
+
+``launches`` counts kernel launches made through this wrapper (a plain
+integer; set it to 0 to start a count).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.models.layers import GLOBAL_WINDOW
+
+launches = 0
+
+
+def normalize_window(window) -> int:
+    """None (full attention) -> GLOBAL_WINDOW; a Python int or a 0-d
+    integer tensor -> that int."""
+    if window is None:
+        return GLOBAL_WINDOW
+    if isinstance(window, torch.Tensor):
+        if window.ndim != 0 or window.dtype.is_floating_point:
+            raise ValueError(f"window must be a 0-d integer tensor, got "
+                             f"{window.dtype} of shape {tuple(window.shape)}")
+        return int(window.item())
+    return int(window)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window=None):
+    """q (B,S,H,hd), k/v (B,S,Hk,hd) -> (B,S,H,hd)."""
+    global launches
+    w = normalize_window(window)
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, window=w)
+    out = flash_attention_fwd(q, k, v, causal=causal, window=w)
+    launches += 1
+    return out

@@ -1,0 +1,119 @@
+"""Where the serving main path's time goes on the card.
+
+    PYTHONPATH=src python -m repro_torch.launch.profile
+
+Runs ``serve.generate``'s two phases at the main path's shapes
+(microllama-300m, bf16, 4 prompts of 512 tokens, 32 greedy tokens) —
+one prefill (flash kernel on) and the greedy decode steps — each under
+``torch.profiler`` on seeded random weights, and prints one JSON line
+per phase: host wall time, device busy time (the union of the phase's
+CUDA kernel intervals), the device's idle share of the phase's window,
+launches per token step, and the kernels with the most device time and
+the host ops with the most self CPU time.  Needs a CUDA card; the
+profiler adds host time per launch, so wall times here run above
+``chip_smoke.py``'s.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from repro_torch import models, resolve_device, serve
+from repro_torch.configs import get_config
+
+ARCH, BATCH, PROMPT, NEW, TOP = "microllama-300m", 4, 512, 32, 8
+
+
+def _kernel_events(prof):
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def _busy_us(intervals) -> float:
+    busy, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if e <= end:
+            continue
+        busy += e - max(s, end)
+        end = e
+    return busy
+
+
+def summarize(prof, name: str, wall_s: float, steps: int) -> dict:
+    kernels = _kernel_events(prof)
+    spans = [(e.time_range.start, e.time_range.end) for e in kernels]
+    cpu = [e.time_range.start for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CPU]
+    window = max(e for _, e in spans) - min(cpu + [s for s, _ in spans])
+    by_name = {}
+    for e in kernels:
+        t, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:TOP]
+    host = sorted(prof.key_averages(),
+                  key=lambda a: -a.self_cpu_time_total)[:TOP]
+    busy = _busy_us(spans)
+    return dict(
+        phase=name, wall_s=wall_s, window_us=window, device_busy_us=busy,
+        device_idle_share=1.0 - busy / window, kernel_launches=len(kernels),
+        launches_per_step=len(kernels) / steps,
+        top_kernels=[dict(name=n[:90], device_us=t, calls=c,
+                          share_of_busy=t / busy)
+                     for n, (t, c) in ranked],
+        top_host_ops=[dict(name=a.key, self_cpu_us=a.self_cpu_time_total,
+                           calls=a.count) for a in host])
+
+
+@torch.inference_mode()
+def run():
+    dev = resolve_device()
+    cfg = get_config(ARCH)
+    params = models.init_params(cfg, 0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
+                            generator=gen, device=dev)
+    serve.generate(params, cfg, prompts[:, :64], max_new_tokens=2)  # warm-up
+    out = []
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        logits, cache = models.prefill(params, prompts, cfg, PROMPT + NEW,
+                                       use_kernels=True, last_only=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    out.append(summarize(prof, "prefill", wall, 1))
+
+    tok = torch.argmax(logits[:, -1], dim=-1)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(NEW - 1):
+            logits, cache = models.decode_step(params, cache, tok,
+                                               PROMPT + i, cfg)
+            tok = torch.argmax(logits, dim=-1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    out.append(summarize(prof, "decode", wall, NEW - 1))
+    return out
+
+
+def main() -> int:
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], check=True,
+                         capture_output=True, text=True).stdout.strip()
+    print(json.dumps({"nvidia_smi": smi, "torch": torch.__version__}),
+          flush=True)
+    for row in run():
+        print(json.dumps(row), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,405 @@
+"""Dense decoder-only language model in PyTorch.
+
+Port of the dense subset of ``repro/models/lm.py``.  ``DecoderLM`` holds
+the parameters (an ``nn.ModuleList`` of ``DecoderLayer``s, weights in
+JAX's ``(d_in, d_out)`` orientation); the entry points below are plain
+functions over it, as in the JAX package, with a Python loop over the
+layers where JAX scans.  Architectures other than ``dense`` raise
+``NotImplementedError``.
+
+Cache layout (decode), as in JAX:
+  k, v    : (L, B, C, Hk, hd)      C = cache length (ring buffer)
+Ring-buffer semantics: position p lives in slot p % C; the absolute
+position held by slot i at decode position ``pos`` is
+pos - ((pos - i) % C).
+
+Paged layout: kp, vp : (L, num_blocks + 1, block_size, Hk, hd), the last
+block a scratch block that masked writes land in, addressed through
+per-lane block tables ((n_lanes, nb_max) int, -1 = unallocated).
+
+Where the port differs from JAX: ``decode_step``, ``decode_step_paged``
+and ``prefill_chunk_paged`` write the cache IN PLACE and return the same
+dict (JAX returns a new cache).  Parameters are created with
+``requires_grad=False``: this slice serves.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, List
+
+import torch
+from torch import nn
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.models import layers as L
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    return _DTYPES[cfg.dtype]
+
+
+def _check_arch(cfg: ModelConfig) -> None:
+    if cfg.arch_type != "dense" or cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            f"the PyTorch port runs dense decoders only; {cfg.name} is "
+            f"{cfg.arch_type!r}")
+
+
+def _param(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+class DecoderLayer(nn.Module):
+    """One pre-norm block: attention + SwiGLU MLP."""
+
+    def __init__(self, tree: Dict):
+        super().__init__()
+        self.attn_norm = _param(tree["attn_norm"])
+        self.attn = nn.ParameterDict(
+            {k: _param(v) for k, v in tree["attn"].items()})
+        self.mlp_norm = _param(tree["mlp_norm"])
+        self.gate = _param(tree["gate"])
+        self.up = _param(tree["up"])
+        self.down = _param(tree["down"])
+
+
+class DecoderLM(nn.Module):
+    """Parameters of a dense decoder.  ``tree`` is the JAX parameter
+    layout with the layers as a list instead of a stacked axis:
+    {"embed", "layers": [layer trees], "final_norm"[, "lm_head"]}."""
+
+    def __init__(self, cfg: ModelConfig, tree: Dict):
+        super().__init__()
+        _check_arch(cfg)
+        self.cfg = cfg
+        self.embed = _param(tree["embed"])
+        self.layers = nn.ModuleList(DecoderLayer(t) for t in tree["layers"])
+        self.final_norm = _param(tree["final_norm"])
+        self.lm_head = (None if cfg.tie_embeddings
+                        else _param(tree["lm_head"]))
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+
+# --------------------------------------------------------------------
+# init
+# --------------------------------------------------------------------
+
+def init_layer(gen: torch.Generator, cfg: ModelConfig) -> Dict:
+    dt, dev, d = _dtype(cfg), gen.device, cfg.d_model
+    return {
+        "attn_norm": torch.zeros((d,), dtype=dt, device=dev),
+        "attn": L.init_attention(gen, cfg, dt),
+        "mlp_norm": torch.zeros((d,), dtype=dt, device=dev),
+        "gate": L.dense_init(gen, (d, cfg.d_ff), dtype=dt),
+        "up": L.dense_init(gen, (d, cfg.d_ff), dtype=dt),
+        "down": L.dense_init(gen, (cfg.d_ff, d), dtype=dt),
+    }
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, *,
+                device=None) -> DecoderLM:
+    """Seeded random init with the JAX package's distributions (its
+    bits cannot be matched: parity tests carry JAX params over with
+    ``repro_torch.convert``).  Runs on ``cuda`` unless ``device`` names
+    another."""
+    _check_arch(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dt = _dtype(cfg)
+    tree = {
+        "embed": L.dense_init(gen, (cfg.vocab_size, cfg.d_model),
+                              scale=0.02, dtype=dt),
+        "layers": [init_layer(gen, cfg) for _ in range(cfg.num_layers)],
+        "final_norm": torch.zeros((cfg.d_model,), dtype=dt, device=dev),
+    }
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = L.dense_init(gen, (cfg.d_model, cfg.vocab_size),
+                                       dtype=dt)
+    return DecoderLM(cfg, tree)
+
+
+def layer_is_global(cfg: ModelConfig) -> List[bool]:
+    """Which layers use full (global) attention."""
+    if cfg.sliding_window is None:
+        return [True] * cfg.num_layers
+    if cfg.global_every is None:
+        return [False] * cfg.num_layers
+    return [(i + 1) % cfg.global_every == 0 for i in range(cfg.num_layers)]
+
+
+def _decode_window(cfg: ModelConfig, is_global: bool):
+    if cfg.sliding_window is None:
+        return None
+    return L.GLOBAL_WINDOW if is_global else cfg.sliding_window
+
+
+def _embed(params: DecoderLM, tokens, cfg: ModelConfig):
+    # the sqrt(d) scale is rounded to the model dtype first, as in JAX
+    scale = torch.tensor(math.sqrt(cfg.d_model), dtype=params.embed.dtype)
+    return params.embed[tokens] * scale
+
+
+def _head(params: DecoderLM, x, cfg: ModelConfig):
+    x = L.rms_norm(x, params.final_norm, cfg.rms_eps)
+    if cfg.tie_embeddings:
+        return x @ params.embed.T
+    return x @ params.lm_head
+
+
+def _mlp(layer: DecoderLayer, x, cfg: ModelConfig):
+    h2 = L.rms_norm(x, layer.mlp_norm, cfg.rms_eps)
+    return x + L.swiglu(h2, layer.gate, layer.up, layer.down)
+
+
+def _tensor(x, device, dtype=torch.long):
+    return torch.as_tensor(x, dtype=dtype, device=device)
+
+
+# --------------------------------------------------------------------
+# forward / prefill
+# --------------------------------------------------------------------
+
+def forward(params: DecoderLM, tokens, cfg: ModelConfig, *,
+            use_kernels: bool = False):
+    """tokens (B,S) -> (logits (B, S, V), aux).  aux is 0 (no MoE).  The
+    JAX ``prefix_emb`` (VLM/audio stub embeddings) belongs to families the
+    port does not run yet."""
+    x = _embed(params, tokens, cfg)
+    positions = torch.arange(x.shape[1], device=x.device)
+    for layer, g in zip(params.layers, layer_is_global(cfg)):
+        h = L.rms_norm(x, layer.attn_norm, cfg.rms_eps)
+        x = x + L.attention(layer.attn, h, cfg, causal=True,
+                            window=L.plan_window(cfg, g),
+                            positions=positions, use_kernel=use_kernels)
+        x = _mlp(layer, x, cfg)
+    return _head(params, x, cfg), torch.zeros((), dtype=torch.float32)
+
+
+def _ring_scatter(kv, S_total: int, C: int):
+    """Place the last min(C, S_total) positions of kv (B,S,Hk,hd) into a
+    (B,C,Hk,hd) ring buffer at slot p % C (position p's canonical slot)."""
+    take = min(C, S_total)
+    slots = torch.arange(S_total - take, S_total, device=kv.device) % C
+    buf = torch.zeros((kv.shape[0], C) + tuple(kv.shape[2:]),
+                      dtype=kv.dtype, device=kv.device)
+    buf[:, slots] = kv[:, S_total - take:]
+    return buf
+
+
+def prefill(params: DecoderLM, tokens, cfg: ModelConfig, cache_len: int, *,
+            use_kernels: bool = False, last_only: bool = False):
+    """Forward pass that also fills the KV cache.  Returns (logits
+    (B, S, V), cache); ``last_only=True`` computes the final position's
+    logits only (shape (B, 1, V)).
+
+    ``use_kernels=True`` runs attention through
+    ``kernels.flash_attention.ops.flash_attention``: the hand-written
+    kernel on a CUDA tensor, its plain version on a CPU tensor."""
+    B, S_total = tokens.shape
+    x = _embed(params, tokens, cfg)
+    positions = torch.arange(S_total, device=x.device)
+    ks, vs = [], []
+    for layer, g in zip(params.layers, layer_is_global(cfg)):
+        window = L.plan_window(cfg, g)
+        h = L.rms_norm(x, layer.attn_norm, cfg.rms_eps)
+        q, k, v = L.qkv_project(layer.attn, h, cfg, positions)
+        if use_kernels:
+            a = flash_ops.flash_attention(q, k, v, causal=True, window=window)
+        else:
+            a = L.sdpa(q, k, v, causal=True, window=window)
+        x = x + a.reshape(B, S_total, cfg.q_dim) @ layer.attn["o"]
+        ks.append(_ring_scatter(k, S_total, cache_len))
+        vs.append(_ring_scatter(v, S_total, cache_len))
+        x = _mlp(layer, x, cfg)
+    if last_only:
+        x = x[:, -1:]
+    return _head(params, x, cfg), {"k": torch.stack(ks), "v": torch.stack(vs)}
+
+
+# --------------------------------------------------------------------
+# KV cache + decode
+# --------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
+               device=None) -> Dict[str, torch.Tensor]:
+    _check_arch(cfg)
+    dev = resolve_device(device)
+    shape = (cfg.num_layers, batch, cache_len, cfg.num_kv_heads,
+             cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=_dtype(cfg), device=dev),
+            "v": torch.zeros(shape, dtype=_dtype(cfg), device=dev)}
+
+
+def _mask_state(new, old, active):
+    """Keep ``old`` rows for inactive lanes (retired slots must not
+    accumulate garbage).  active: (B,) bool; leading axis is B."""
+    if active is None:
+        return new
+    keep = active.reshape((-1,) + (1,) * (new.dim() - 1))
+    return torch.where(keep, new, old)
+
+
+def _decode_layer(layer: DecoderLayer, x, cfg: ModelConfig, is_global: bool,
+                  k_cache, v_cache, pos, C: int, active=None):
+    """One layer, one token.  k_cache/v_cache: this layer's (B,C,Hk,hd)
+    views, written in place at the token's slot.  ``active``: optional
+    (B,) bool lane mask — inactive lanes keep their cache rows."""
+    h = L.rms_norm(x, layer.attn_norm, cfg.rms_eps)
+    k_new, v_new = L.project_kv_one(layer.attn, h, cfg, pos)
+    slot = pos % C
+    B = x.shape[0]
+    rows = torch.arange(B, device=x.device)
+    slot_b = slot.expand(B)                      # lockstep: one slot
+    k_w, v_w = k_new[:, 0], v_new[:, 0]
+    if active is not None:
+        k_w = _mask_state(k_w, k_cache[rows, slot_b], active)
+        v_w = _mask_state(v_w, v_cache[rows, slot_b], active)
+    k_cache[rows, slot_b] = k_w
+    v_cache[rows, slot_b] = v_w
+    pos_c = pos[..., None]                                   # (1,) or (B,1)
+    kv_pos = pos_c - (pos_c - torch.arange(C, device=x.device)) % C
+    a = L.decode_attention(layer.attn, h, cfg, k_cache, v_cache, pos,
+                           window=_decode_window(cfg, is_global),
+                           kv_pos_of_slot=kv_pos)
+    return _mlp(layer, x + a, cfg)
+
+
+def decode_step(params: DecoderLM, cache, token, pos, cfg: ModelConfig, *,
+                active=None):
+    """token (B,) int, pos scalar or (B,) int -> (logits (B,V), cache).
+    The cache is updated in place and returned.  ``active``: optional
+    (B,) bool lane mask — inactive lanes compute but never write."""
+    dev = params.device
+    token = _tensor(token, dev)
+    pos = _tensor(pos, dev)
+    if active is not None:
+        active = _tensor(active, dev, torch.bool)
+    x = _embed(params, token, cfg)[:, None, :]
+    C = cache["k"].shape[2]
+    for i, (layer, g) in enumerate(zip(params.layers, layer_is_global(cfg))):
+        x = _decode_layer(layer, x, cfg, g, cache["k"][i], cache["v"][i],
+                          pos, C, active=active)
+    return _head(params, x[:, 0], cfg), cache
+
+
+# --------------------------------------------------------------------
+# paged KV cache (block pool + block tables) — serving
+# --------------------------------------------------------------------
+
+def init_paged_cache(cfg: ModelConfig, n_lanes: int, num_blocks: int,
+                     block_size: int, *, device=None):
+    """Block pools (L, num_blocks + 1, block_size, Hk, hd); the last
+    block is scratch.  ``n_lanes`` sizes per-lane state, which dense
+    decoders do not have."""
+    _check_arch(cfg)
+    dev = resolve_device(device)
+    shape = (cfg.num_layers, num_blocks + 1, block_size, cfg.num_kv_heads,
+             cfg.resolved_head_dim)
+    return {"kp": torch.zeros(shape, dtype=_dtype(cfg), device=dev),
+            "vp": torch.zeros(shape, dtype=_dtype(cfg), device=dev)}
+
+
+def _slot_positions(table, bs: int):
+    """kv_pos of every gathered slot: its position, or -1 where the
+    table has no block."""
+    nb = table.shape[-1]
+    slot_idx = torch.arange(nb * bs, device=table.device)
+    valid = (table >= 0).repeat_interleave(bs, dim=-1)
+    return torch.where(valid, slot_idx, -1)
+
+
+def decode_step_paged(params: DecoderLM, cache, token, pos, cfg: ModelConfig,
+                      tables, active, *, block_size: int):
+    """One decode tick over the paged cache, written in place.
+
+    token, pos, active : (B,) — B lanes in lockstep, each at its own
+        position; inactive (or unallocated) lanes write zeros into the
+        scratch block.
+    tables : (B, nb_max) physical-block table per lane (-1 = none).
+    Returns (logits (B, V), cache).  Slots beyond a lane's allocation
+    carry kv_pos = -1 and drop out of the softmax exactly.
+    """
+    dev = params.device
+    token, pos, tables = (_tensor(token, dev), _tensor(pos, dev),
+                          _tensor(tables, dev))
+    active = _tensor(active, dev, torch.bool)
+    B, bs = token.shape[0], block_size
+    nb = tables.shape[1]
+    scratch = cache["kp"].shape[1] - 1
+    blk = torch.clamp(pos // bs, 0, nb - 1)
+    off = pos % bs
+    phys = tables.gather(1, blk[:, None])[:, 0]
+    ok = active & (phys >= 0)
+    phys_w = torch.where(ok, phys, scratch)
+    tab_c = torch.where(tables >= 0, tables, scratch)
+    kv_pos = _slot_positions(tables, bs)
+    Hk, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+
+    x = _embed(params, token, cfg)[:, None, :]
+    for i, (layer, g) in enumerate(zip(params.layers, layer_is_global(cfg))):
+        h = L.rms_norm(x, layer.attn_norm, cfg.rms_eps)
+        k_new, v_new = L.project_kv_one(layer.attn, h, cfg, pos)
+        kp, vp = cache["kp"][i], cache["vp"][i]
+        # colliding scratch writes all carry zeros: deterministic
+        kp[phys_w, off] = torch.where(ok[:, None, None], k_new[:, 0], 0)
+        vp[phys_w, off] = torch.where(ok[:, None, None], v_new[:, 0], 0)
+        k_cache = kp[tab_c].reshape(B, nb * bs, Hk, hd)
+        v_cache = vp[tab_c].reshape(B, nb * bs, Hk, hd)
+        a = L.decode_attention(layer.attn, h, cfg, k_cache, v_cache, pos,
+                               window=_decode_window(cfg, g),
+                               kv_pos_of_slot=kv_pos)
+        x = _mlp(layer, x + a, cfg)
+    return _head(params, x[:, 0], cfg), cache
+
+
+def prefill_chunk_paged(params: DecoderLM, cache, tokens, pos0: int,
+                        cfg: ModelConfig, table_row, lane: int, *,
+                        block_size: int):
+    """Prefill one chunk of one lane's prompt into the paged cache, in
+    place.
+
+    tokens : (1, Sc) chunk covering positions [pos0, pos0 + Sc); the
+        blocks spanning that range must already be in ``table_row``
+        ((nb_max,), -1 = unallocated).
+    lane : the lane whose per-lane state carries across chunks; dense
+        decoders have none, so it is unused here.
+    Attention sees every earlier position through the gathered cache,
+    so chunked prefill equals one-shot prefill.  Returns (last-position
+    logits (1, V), cache).
+    """
+    dev = params.device
+    tokens, table_row = _tensor(tokens, dev), _tensor(table_row, dev)
+    B, Sc = tokens.shape
+    bs = block_size
+    nb = table_row.shape[0]
+    scratch = cache["kp"].shape[1] - 1
+    positions = int(pos0) + torch.arange(Sc, device=dev)
+    phys = table_row[torch.clamp(positions // bs, 0, nb - 1)]
+    phys_w = torch.where(phys >= 0, phys, scratch)
+    off = positions % bs
+    tab_c = torch.where(table_row >= 0, table_row, scratch)
+    kv_pos = _slot_positions(table_row, bs)[None]          # (1, nb*bs)
+    qpos = positions[None]                                 # (1, Sc)
+    Hk, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+
+    x = _embed(params, tokens, cfg)
+    for i, (layer, g) in enumerate(zip(params.layers, layer_is_global(cfg))):
+        h = L.rms_norm(x, layer.attn_norm, cfg.rms_eps)
+        q, k, v = L.qkv_project(layer.attn, h, cfg, positions)
+        kp, vp = cache["kp"][i], cache["vp"][i]
+        kp[phys_w, off] = k[0]
+        vp[phys_w, off] = v[0]
+        k_cache = kp[tab_c].reshape(1, nb * bs, Hk, hd)
+        v_cache = vp[tab_c].reshape(1, nb * bs, Hk, hd)
+        a = L.gathered_attention(q, k_cache, v_cache, qpos, kv_pos,
+                                 window=_decode_window(cfg, g))
+        x = x + a.reshape(B, Sc, cfg.q_dim) @ layer.attn["o"]
+        x = _mlp(layer, x, cfg)
+    return _head(params, x[:, -1], cfg), cache

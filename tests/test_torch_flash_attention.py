@@ -1,0 +1,132 @@
+"""Flash attention: the port's wrapper against the JAX package.
+
+On the CPU the port's wrapper runs its plain version; the JAX side runs
+the Pallas kernel in interpret mode (``repro.kernels.flash_attention.ops``),
+as ``tests/test_kernels.py`` does.  Inputs are made with numpy from a
+seed and cast to bf16 by both frameworks with round-to-nearest-even, so
+both sides see the same values.  Tolerances are ``tests/test_kernels.py``'s
+``_tol``: 2e-5 in f32, 2e-2 in bf16.
+
+The padded bidirectional case is held against JAX ``layers.sdpa``, not
+the Pallas kernel: the Pallas wrapper zero-pads S and its kernel lets
+padded keys into a bidirectional softmax (an error of about 0.1).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention.ops import flash_attention as jax_flash
+from repro.models import layers as jax_layers
+from repro_torch.kernels.flash_attention import kernel, ops
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
+       "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+
+# (B, S, H, Hk, hd, window, causal, dtype): tests/test_kernels.py's
+# FLASH_CASES, plus a ragged S = 200
+CASES = [
+    (2, 256, 4, 2, 64, None, True, "float32"),
+    (1, 128, 8, 8, 32, None, True, "float32"),
+    (2, 256, 4, 1, 64, 100, True, "float32"),
+    (1, 384, 6, 3, 128, 64, True, "float32"),
+    (1, 256, 2, 2, 64, None, False, "float32"),     # bidirectional
+    (2, 192, 4, 2, 64, None, True, "bfloat16"),     # bf16 + pad (192)
+    (1, 96, 4, 4, 80, None, True, "float32"),       # odd hd, pad
+    (2, 200, 4, 2, 64, None, True, "float32"),      # ragged S
+]
+
+
+def _inputs(B, S, H, Hk, hd, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, S, H, hd), np.float32),
+            rng.standard_normal((B, S, Hk, hd), np.float32),
+            rng.standard_normal((B, S, Hk, hd), np.float32))
+
+
+def _jax(arrs, dtype):
+    return [jnp.asarray(a).astype(jnp.dtype(dtype)) for a in arrs]
+
+
+def _torch(arrs, dtype):
+    return [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrs]
+
+
+@pytest.mark.parametrize("B,S,H,Hk,hd,window,causal,dtype", CASES)
+def test_cpu_wrapper_matches_pallas_kernel(B, S, H, Hk, hd, window, causal,
+                                           dtype):
+    arrs = _inputs(B, S, H, Hk, hd)
+    want = jax_flash(*_jax(arrs, dtype), causal=causal, window=window)
+    got = ops.flash_attention(*_torch(arrs, dtype), causal=causal,
+                              window=window)
+    assert got.dtype == getattr(torch, dtype)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **TOL[dtype])
+
+
+def test_padded_bidirectional_matches_sdpa():
+    arrs = _inputs(1, 192, 4, 2, 64, seed=1)
+    want = jax_layers.sdpa(*_jax(arrs, "float32"), causal=False)
+    got = ops.flash_attention(*_torch(arrs, "float32"), causal=False)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               **TOL["float32"])
+
+
+def test_window_forms_agree():
+    """None, a Python int and a 0-d integer tensor are all windows; a
+    float or shaped tensor is not."""
+    q, k, v = _torch(_inputs(1, 64, 2, 1, 32, seed=2), "float32")
+    full = ops.flash_attention(q, k, v, window=None)
+    torch.testing.assert_close(
+        full, ops.flash_attention(q, k, v, window=ops.GLOBAL_WINDOW),
+        rtol=0, atol=0)
+    torch.testing.assert_close(
+        ops.flash_attention(q, k, v, window=9),
+        ops.flash_attention(q, k, v, window=torch.tensor(9, dtype=torch.int32)),
+        rtol=0, atol=0)
+    with pytest.raises(ValueError, match="0-d integer"):
+        ops.flash_attention(q, k, v, window=torch.tensor(9.0))
+    with pytest.raises(ValueError, match="0-d integer"):
+        ops.flash_attention(q, k, v, window=torch.tensor([9]))
+
+
+def test_cpu_path_counts_no_launch_and_binding_rejects_cpu():
+    """The CPU path is the plain version: no kernel launch is counted,
+    and the CUDA binding refuses CPU tensors (before any build)."""
+    q, k, v = _torch(_inputs(1, 32, 2, 1, 32, seed=3), "float32")
+    before = ops.launches
+    ops.flash_attention(q, k, v)
+    assert ops.launches == before
+    with pytest.raises(ValueError, match="CUDA device"):
+        kernel.flash_attention_fwd(q, k, v, causal=True, window=8)
+
+
+# (B, S, H, Hk, hd, window, causal, dtype) as chip_smoke.py checks them
+GPU_CASES = [
+    (4, 512, 16, 4, 64, None, True, "bfloat16"),
+    (4, 512, 16, 4, 64, None, True, "float32"),
+    (1, 2048, 16, 4, 64, None, True, "bfloat16"),
+    (2, 200, 4, 2, 64, None, True, "float32"),
+    (2, 256, 4, 1, 64, 100, True, "float32"),
+    (1, 384, 6, 3, 128, 64, True, "float32"),
+    (1, 96, 4, 4, 80, None, True, "float32"),
+    (1, 128, 8, 8, 32, None, True, "float32"),
+    (1, 192, 4, 2, 64, None, False, "float32"),
+]
+
+
+@pytest.mark.gpu
+def test_kernel_matches_plain_version_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    for B, S, H, Hk, hd, window, causal, dtype in GPU_CASES:
+        q, k, v = [t.cuda() for t in _torch(_inputs(B, S, H, Hk, hd), dtype)]
+        before = ops.launches
+        got = ops.flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        assert ops.launches == before + 1
+        want = flash_attention_ref(q, k, v, causal=causal,
+                                   window=ops.normalize_window(window))
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().cpu().numpy(), **TOL[dtype])

@@ -1,0 +1,66 @@
+"""The port stands alone: no JAX, nothing of ``repro``, no CPU fallback."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch import models
+from repro_torch.configs import get_config, reduced
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def _module_names():
+    for path in sorted(PORT.rglob("*.py")):
+        rel = path.relative_to(PORT.parent).with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        yield ".".join(parts)
+
+
+def test_no_file_imports_jax_or_repro():
+    bad = [(str(p.relative_to(ROOT)), m) for p in _port_files()
+           for m in _imported(p)
+           if m.split(".")[0] in FORBIDDEN]
+    assert bad == []
+
+
+def test_importing_every_module_loads_no_jax():
+    names = list(_module_names())
+    assert "repro_torch.kernels.flash_attention.ops" in names
+    code = ("import importlib, sys\n"
+            f"for m in {names!r}: importlib.import_module(m)\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] "
+            "in ('jax', 'jaxlib', 'repro')))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=ROOT, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_entry_points_default_to_cuda_and_never_fall_back(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = reduced(get_config("microllama-300m"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        models.init_params(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        models.init_paged_cache(cfg, 2, 4, 4)
+    assert models.init_params(cfg, device="cpu").device.type == "cpu"
