@@ -6,11 +6,14 @@
 Phases, one JSON line each; any failure raises and exits non-zero:
 
   1. environment: card, power limit, torch; build every kernel from the
-     sources in the checkout (nvcc, sm_90a) and print ptxas' report.
+     sources in the checkout (one nvcc per source, all started together,
+     sm_90a) and print ptxas' report.
   2. each kernel against its plain version on the card, at the shapes
-     the main path gives it and at edge cases, with stated tolerances;
+     the main paths give it and at edge cases, with stated tolerances;
      kernel / plain / library times and the card's bound at the
-     MicroLlama-300M prefill shapes.
+     MicroLlama-300M prefill shapes (flash attention) and at the training
+     stats shape (8, 304,636,928) (gradstats, with a bit-identical
+     repeat).
   3. the main path: ``serve.generate`` on microllama-300m at full width
      in bf16 (seeded random weights), 4 prompts of 512 tokens, 32 greedy
      tokens; the flash kernel must launch once per layer.  Prefill and
@@ -19,6 +22,19 @@ Phases, one JSON line each; any failure raises and exits non-zero:
   4. the server: ``DenseBatcher`` and ``ContinuousBatcher`` at full
      width in f32 on one bursty trace; every request answered, no block
      leak, greedy tokens equal across both arms and ``generate``.
+
+  5. training: ``launch.train.run`` (the ``python -m
+     repro_torch.launch.train`` entry point) on microllama-300m at full
+     width in bf16 (seeded random weights), seq 128, k=2, M=2, H=2, T=3,
+     batch 2 -> max 8, merge at t=3, per-sample stats on a probe of at
+     most 8 through the gradstats kernels; then a two-round run with the
+     microbatch estimator (B = M rows).  Per round: loss, requested
+     batches, modes, pool size, comm events, wall time and the device
+     time of each phase (``History.phase_ms``, CUDA events).  Fails
+     unless the losses are finite, the requested batches never shrink,
+     each gradstats kernel launched once per stats reduction, the flash
+     kernel never launched, and the kernel and plain statistics of one
+     stats round's G agree.
 
 Then the ``kernels`` summary line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Without a card (or without the
@@ -30,9 +46,12 @@ full f32 and f32 comparisons measure the kernels, not TF32 rounding.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 from pathlib import Path
 
 import torch
@@ -48,6 +67,12 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 FLASH_SRC = "src/repro_torch/csrc/flash_attention.cu"
 FLASH_TPU = "src/repro/kernels/flash_attention/kernel.py:30"
+GRADSTATS_SRC = "src/repro_torch/csrc/gradstats.cu"
+COLSUM_TPU = "src/repro/kernels/gradstats/kernel.py:29"
+MOMENTS_TPU = "src/repro/kernels/gradstats/kernel.py:40"
+KERNEL_SOURCES = {"flash_attention": FLASH_SRC, "gradstats": GRADSTATS_SRC}
+# microllama-300m's parameter count: the columns of the training stats G
+D_MICROLLAMA = 304_636_928
 
 
 def emit(phase: str, **kw) -> None:
@@ -102,13 +127,16 @@ def phase_env():
          allow_tf32_cudnn=torch.backends.cudnn.allow_tf32)
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    built = _build.build("flash_attention")
-    ptxas = [line.strip() for line in built.log.splitlines()
-             if "registers" in line or "spill" in line]
-    emit("build", kernel="flash_attention", source=FLASH_SRC,
-         nvcc_seconds=built.seconds,
-         build_and_load_seconds=time.perf_counter() - t0,
-         library=str(built.path.relative_to(ROOT)), ptxas=ptxas)
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        built = dict(zip(KERNEL_SOURCES,
+                         pool.map(_build.build, KERNEL_SOURCES)))
+    wall = time.perf_counter() - t0
+    for name, b in built.items():
+        ptxas = [line.strip() for line in b.log.splitlines()
+                 if "registers" in line or "spill" in line]
+        emit("build", kernel=name, source=KERNEL_SOURCES[name],
+             nvcc_seconds=b.seconds, all_builds_and_loads_seconds=wall,
+             library=str(b.path.relative_to(ROOT)), ptxas=ptxas)
     return smi
 
 
@@ -168,6 +196,95 @@ def phase_kernels():
         if not ok:
             raise AssertionError(f"flash kernel disagrees with its plain "
                                  f"version: {row}")
+    return summary
+
+
+def gradstats_bounds(B: int, D: int, elem: int):
+    """(bound_ms, bound_by) per kernel: each input read once, each
+    output written once, against the f32 operations per element (an add
+    in colsum; two multiply-adds in moments, plus n2's)."""
+    out = {}
+    for name, nbytes, flops in (
+            ("colsum", B * D * elem + D * 4, B * D),
+            ("moments", B * D * elem + D * 4 + (2 * B + 1) * 4,
+             4 * B * D + 2 * D)):
+        t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[torch.float32]
+        out[name] = (max(t_bytes, t_ops) * 1e3,
+                     "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+def phase_gradstats_kernels():
+    """Both gradstats kernels against their plain versions, with a
+    bit-identical repeat; times at the training main path's shape
+    (8, 304,636,928) f32.  Returns the per-kernel summary there."""
+    from repro_torch.kernels.gradstats import kernel, ops
+    from repro_torch.kernels.gradstats.ref import (colsum_mean_ref,
+                                                   gradstats_reduce_ref,
+                                                   moments_ref)
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [  # (B, D, dtype, timed)
+        (8, D_MICROLLAMA, f32, True),    # per-sample probe of 8
+        (2, D_MICROLLAMA, f32, False),   # microbatch estimator, M = 2
+        (1, 16, f32, False), (5, 193, f32, False), (13, 1027, f32, False),
+        (31, 1000, bf16, False), (64, 4096, f32, False),
+    ]
+    summary = None
+    for B, D, dt, timed in cases:
+        gen = torch.Generator(device="cuda").manual_seed(B * 7 + D % 1000)
+        G = torch.randn((B, D), generator=gen, device="cuda")
+        G = G.mul_(2.0).add_(0.3).to(dt)
+        got = ops.gradstats_reduce(G)
+        again = ops.gradstats_reduce(G)
+        torch.cuda.synchronize()
+        repeat_identical = all(torch.equal(a, b) for a, b in zip(got, again))
+        want = gradstats_reduce_ref(G)
+        errs, ok = {}, repeat_identical
+        for name, g, w in zip(("s", "d", "n2"), got, want):
+            errs[name] = (g - w).abs().max().item()
+            errs[name + "_rel"] = errs[name] / w.abs().max().item()
+            ok = ok and torch.allclose(g, w, rtol=TOL[dt], atol=TOL[dt])
+        gbar = kernel.colsum_mean(G)
+        gbar_ref = colsum_mean_ref(G)
+        errs["gbar"] = (gbar - gbar_ref).abs().max().item()
+        ok = ok and torch.allclose(gbar, gbar_ref, rtol=TOL[dt], atol=TOL[dt])
+        row = dict(shape=[B, D], dtype=str(dt).replace("torch.", ""),
+                   repeat_bit_identical=repeat_identical, tol=TOL[dt],
+                   ok=ok, **errs)
+        if timed:
+            bounds = gradstats_bounds(B, D, G.element_size())
+            row.update(
+                pair_ms=cuda_ms(lambda: ops.gradstats_reduce(G), iters=10,
+                                warmup=2),
+                colsum_ms=cuda_ms(lambda: kernel.colsum_mean(G), iters=10,
+                                  warmup=2),
+                moments_ms=cuda_ms(lambda: kernel.moments(G, gbar),
+                                   iters=10, warmup=2),
+                plain_pair_ms=cuda_ms(lambda: gradstats_reduce_ref(G),
+                                      iters=5, warmup=1),
+                plain_colsum_ms=cuda_ms(lambda: colsum_mean_ref(G), iters=5,
+                                        warmup=1),
+                plain_moments_ms=cuda_ms(lambda: moments_ref(G, gbar_ref),
+                                         iters=5, warmup=1),
+                # one PyTorch call per function: the column mean, and the
+                # Gram matrix G G^T from which s, d and n2 all follow
+                library_colsum_ms=cuda_ms(
+                    lambda: torch.mean(G, dim=0, dtype=f32), iters=5,
+                    warmup=1),
+                library_gram_ms=cuda_ms(lambda: torch.mm(G, G.T), iters=5,
+                                        warmup=1),
+                pair_bound_ms=B * D * G.element_size() / PEAK_BYTES * 1e3,
+                colsum_bound_ms=bounds["colsum"][0],
+                colsum_bound_by=bounds["colsum"][1],
+                moments_bound_ms=bounds["moments"][0],
+                moments_bound_by=bounds["moments"][1])
+            summary = row
+        emit("kernel_check", kernel="gradstats", **row)
+        del G, got, again, want, gbar, gbar_ref
+        if not ok:
+            raise AssertionError(f"gradstats kernels disagree with their "
+                                 f"plain versions: {row}")
     return summary
 
 
@@ -353,6 +470,113 @@ def phase_server():
     return launches
 
 
+@contextmanager
+def compare_one_stats_round(rec: dict):
+    """While active, the first kernel-route stats reduction of the run
+    is also computed through the plain version on the same G (no kernel
+    launch), and every reduction is counted."""
+    from repro_torch.core import batching
+
+    orig = batching.stats_from_matrix
+
+    def hooked(G, *, use_kernel=False):
+        st = orig(G, use_kernel=use_kernel)
+        rec["reductions"] += 1
+        if use_kernel and "kernel" not in rec:
+            rec["shape"] = list(G.shape)
+            rec["kernel"] = [float(v) for v in st]
+            rec["plain"] = [float(v) for v in orig(G, use_kernel=False)]
+        return st
+
+    batching.stats_from_matrix = hooked
+    try:
+        yield rec
+    finally:
+        batching.stats_from_matrix = orig
+
+
+def run_training(label: str, argv):
+    """One ``launch.train.run`` on the card with the launch counts set
+    to 0 just before it and read just after; checks the run."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.gradstats import ops as gs_ops
+    from repro_torch.launch import train
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rec = {"reductions": 0}
+    flash_ops.launches = 0
+    gs_ops.colsum_launches = gs_ops.moments_launches = 0
+    t0 = time.perf_counter()
+    with compare_one_stats_round(rec):
+        pool, hist, cfg = train.run(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"colsum": gs_ops.colsum_launches,
+                "moments": gs_ops.moments_launches,
+                "flash_attention": flash_ops.launches}
+    peak = torch.cuda.max_memory_allocated()
+    for i, t in enumerate(hist.outer_step):
+        emit("train_round", run=label, round=t, loss=hist.loss[i],
+             requested_batches=hist.requested_batches[i],
+             modes=hist.modes[i], pool_size=hist.pool_size[i],
+             comm_events=hist.comm_events[i], wall_s=hist.wall[i],
+             device_ms=hist.phase_ms[i])
+    final = pool.global_params
+    finite = all(bool(torch.isfinite(v.float()).all())
+                 for v in final.values())
+    names = ("mean_norm2", "sigma2", "ip_var", "orth_var", "b")
+    scale = max(abs(v) for v in rec["plain"]) + 1e-6
+    # tests/test_kernels.py's drop-in criterion, at 1e-4 relative
+    agree = all(abs(x - y) <= 1e-4 * max(abs(x), abs(y)) + 1e-4 * scale
+                for x, y in zip(rec["kernel"], rec["plain"]))
+    expected = sum(hist.pool_size)          # one reduction per trainer round
+    emit("train", run=label, arch=cfg.name, dtype=cfg.dtype,
+         params=cfg.param_count(), argv=argv,
+         wall_s=wall, max_memory_allocated=peak, launches=launches,
+         stats_reductions=rec["reductions"], expected_reductions=expected,
+         stats_G_shape=rec["shape"],
+         stats_kernel=dict(zip(names, rec["kernel"])),
+         stats_plain=dict(zip(names, rec["plain"])), stats_agree=agree,
+         final_params_finite=finite, comm_events=pool.comms.events)
+    if not all(math.isfinite(x) for x in hist.loss) or not finite:
+        raise AssertionError(f"{label}: non-finite loss or parameters")
+    for prev, cur, k0, k1 in zip(hist.requested_batches,
+                                 hist.requested_batches[1:],
+                                 hist.pool_size, hist.pool_size[1:]):
+        if max(cur) < max(prev) or (k0 == k1 and any(
+                c < p for p, c in zip(prev, cur))):
+            raise AssertionError(f"{label}: requested batches shrank: "
+                                 f"{hist.requested_batches}")
+    if not (rec["reductions"] == expected
+            == launches["colsum"] == launches["moments"]):
+        raise AssertionError(f"{label}: gradstats launches {launches} "
+                             f"against {rec['reductions']} stats "
+                             f"reductions ({expected} expected)")
+    if launches["flash_attention"] != 0:
+        raise AssertionError(f"{label}: training launched the flash kernel")
+    if not agree:
+        raise AssertionError(f"{label}: kernel and plain stats differ: "
+                             f"{rec}")
+    return launches
+
+
+TRAIN_ARGV = ["--arch", "microllama-300m", "--seq-len", "128",
+              "--trainers", "2", "--workers", "2", "--inner-steps", "2",
+              "--outer-steps", "3", "--initial-batch", "2", "--max-batch",
+              "8", "--merge-frequency", "3", "--stats-probe-size", "8"]
+
+
+def phase_train():
+    """Algorithm 3 at full width in bf16; then the microbatch estimator.
+    Returns the gradstats launches of the per-sample run."""
+    launches = run_training("per_sample", TRAIN_ARGV)
+    run_training("microbatch", TRAIN_ARGV + [
+        "--outer-steps", "2", "--stats-estimator", "microbatch"])
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -362,16 +586,36 @@ def main() -> int:
     t0 = time.perf_counter()
     smi = phase_env()
     flash = phase_kernels()
+    gs = phase_gradstats_kernels()
     launches = phase_generate()
     phase_server()
-    print(json.dumps({"kernels": [{
+    train_launches = phase_train()
+    kernels = [{
         "name": "flash_attention", "route": "cuda", "source": FLASH_SRC,
         "replaces": FLASH_TPU, "launches": launches,
         "max_abs_err": flash["max_abs_err"], "ms": flash["kernel_ms"],
         "plain_ms": flash["plain_ms"], "bound_ms": flash["bound_ms"],
         "bound_by": flash["bound_by"], "library_ms": flash["library_ms"],
-        "shape": flash["shape"], "dtype": flash["dtype"]}],
-        "seconds": time.perf_counter() - t0}), flush=True)
+        "shape": flash["shape"], "dtype": flash["dtype"]}, {
+        "name": "gradstats_colsum", "route": "cuda", "source": GRADSTATS_SRC,
+        "replaces": COLSUM_TPU, "launches": train_launches["colsum"],
+        "max_abs_err": gs["gbar"], "ms": gs["colsum_ms"],
+        "plain_ms": gs["plain_colsum_ms"], "bound_ms": gs["colsum_bound_ms"],
+        "bound_by": gs["colsum_bound_by"],
+        "library_ms": gs["library_colsum_ms"], "shape": gs["shape"],
+        "dtype": gs["dtype"]}, {
+        "name": "gradstats_moments", "route": "cuda",
+        "source": GRADSTATS_SRC, "replaces": MOMENTS_TPU,
+        "launches": train_launches["moments"],
+        "max_abs_err": max(gs["s"], gs["d"], gs["n2"]),
+        "max_rel_err": max(gs["s_rel"], gs["d_rel"], gs["n2_rel"]),
+        "ms": gs["moments_ms"], "plain_ms": gs["plain_moments_ms"],
+        "bound_ms": gs["moments_bound_ms"],
+        "bound_by": gs["moments_bound_by"],
+        "library_ms": gs["library_gram_ms"], "shape": gs["shape"],
+        "dtype": gs["dtype"]}]
+    print(json.dumps({"kernels": kernels,
+                      "seconds": time.perf_counter() - t0}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

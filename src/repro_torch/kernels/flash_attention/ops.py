@@ -4,7 +4,10 @@ device.
 A CUDA tensor goes to the Hopper kernel (``kernel.flash_attention_fwd``)
 or the call raises; a CPU tensor goes to the plain version
 (``ref.flash_attention_ref``).  Nothing falls back from one to the
-other.  Forward only, like the JAX wrapper.
+other.  Forward only, like the JAX wrapper: the kernel has no backward,
+so on a CUDA tensor with grad mode on and any of q, k, v requiring
+grad the call raises instead of returning an output with no gradient.
+Training runs attention on the plain path (``layers.sdpa``).
 
 ``launches`` counts kernel launches made through this wrapper (a plain
 integer; set it to 0 to start a count).
@@ -39,6 +42,12 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None):
     w = normalize_window(window)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=w)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention has no backward kernel: its output would carry "
+            "no gradient.  Run attention on the plain path to train "
+            "(use_kernels=False, models.layers.sdpa) or call it under "
+            "torch.no_grad()")
     out = flash_attention_fwd(q, k, v, causal=causal, window=w)
     launches += 1
     return out

@@ -1,3 +1,3 @@
-"""Launchers of the port on the card (the JAX package's ``repro.launch``
-counterpart): ``profile`` times the serving main path under
-``torch.profiler``."""
+"""Launchers of the port (the JAX package's ``repro.launch``
+counterpart): ``train`` runs AdLoCo training (Algorithm 3); ``profile``
+times the serving main path under ``torch.profiler``."""

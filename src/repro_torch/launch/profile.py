@@ -1,17 +1,22 @@
-"""Where the serving main path's time goes on the card.
+"""Where the main paths' time goes on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.profile
 
-Runs ``serve.generate``'s two phases at the main path's shapes
+Serving: ``serve.generate``'s two phases at the main path's shapes
 (microllama-300m, bf16, 4 prompts of 512 tokens, 32 greedy tokens) —
-one prefill (flash kernel on) and the greedy decode steps — each under
-``torch.profiler`` on seeded random weights, and prints one JSON line
-per phase: host wall time, device busy time (the union of the phase's
-CUDA kernel intervals), the device's idle share of the phase's window,
-launches per token step, and the kernels with the most device time and
-the host ops with the most self CPU time.  Needs a CUDA card; the
-profiler adds host time per launch, so wall times here run above
-``chip_smoke.py``'s.
+one prefill (flash kernel on) and the greedy decode steps.  Training:
+the phases of one AdLoCo trainer round at the training main path's
+shapes (microllama-300m, bf16 with f32 AdamW state, seq 128, batch 8,
+M = 2 workers) — one inner step, the per-sample gradients of a probe of
+8, their gradstats reduction (kernels on), and the outer step.
+
+Each phase runs under ``torch.profiler`` on seeded random weights, after
+one warm-up call, and prints one JSON line: host wall time, device busy
+time (the union of the phase's CUDA kernel intervals), the device's idle
+share of the phase's window, launches per step, and the kernels with the
+most device time and the host ops with the most self CPU time.  Needs a
+CUDA card; the profiler adds host time per launch, so wall times here
+run above ``chip_smoke.py``'s.
 """
 from __future__ import annotations
 
@@ -25,8 +30,16 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch import models, resolve_device, serve
 from repro_torch.configs import get_config
+from repro_torch.configs.base import AdLoCoConfig
+from repro_torch.core import batching
+from repro_torch.core.adloco import TrainerRound
+from repro_torch.core.diloco import reshape_for_plan
+from repro_torch.data import make_shard_streams
+from repro_torch.launch.train import build_loss_fn
+from repro_torch.models import lm
 
 ARCH, BATCH, PROMPT, NEW, TOP = "microllama-300m", 4, 512, 32, 8
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_WORKERS = 128, 8, 2
 
 
 def _kernel_events(prof):
@@ -104,13 +117,71 @@ def run():
     return out
 
 
+def _profiled(name: str, fn, steps: int = 1):
+    """Warm ``fn`` up once, then profile one call; returns (summary,
+    fn's result)."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return summarize(prof, name, wall, steps), result
+
+
+def run_training():
+    dev = resolve_device()
+    cfg = get_config(ARCH)
+    acfg = AdLoCoConfig(num_init_trainers=1, nodes_per_gpu=TRAIN_WORKERS,
+                        num_inner_steps=1, lr_inner=3e-4,
+                        initial_batch_size=TRAIN_BATCH,
+                        max_batch=TRAIN_BATCH,
+                        stats_probe_size=TRAIN_BATCH, stats_use_kernel=True)
+    loss_fn = build_loss_fn(cfg)
+    rnd = TrainerRound(loss_fn, acfg)
+    pool = rnd.init_pool(
+        [lm.param_dict(models.init_params(cfg, 0, device=dev))],
+        make_shard_streams(cfg.vocab_size, TRAIN_SEQ, TRAIN_WORKERS,
+                           device=dev))
+    tr = pool.trainers[0]
+    plan = rnd.plan_for(tr)
+    step = rnd.cache.get(plan)
+    stream = tr.streams[0]
+
+    def inner_step():
+        batch = reshape_for_plan(stream.next_batch(plan.effective_batch),
+                                 plan)
+        return step(tr.params, tr.inner_opt_states[0], batch)[0]
+
+    def stats_grads():
+        return batching.per_sample_grads(loss_fn, tr.params,
+                                         stream.next_batch(TRAIN_BATCH))
+
+    out = []
+    row, worker = _profiled("train_inner_step", inner_step)
+    out.append(row)
+    row, G = _profiled("train_stats_grads", stats_grads, TRAIN_BATCH)
+    out.append(row)
+    row, _ = _profiled("train_stats_reduce", lambda: batching.requested_batch(
+        batching.stats_from_matrix(G, use_kernel=True), acfg, TRAIN_BATCH))
+    out.append(row)
+    del G
+    workers = [worker] * TRAIN_WORKERS
+    row, _ = _profiled("train_outer", lambda: rnd.outer(tr, workers,
+                                                        x_prev=tr.params))
+    out.append(row)
+    return out
+
+
 def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True,
                          capture_output=True, text=True).stdout.strip()
     print(json.dumps({"nvidia_smi": smi, "torch": torch.__version__}),
           flush=True)
-    for row in run():
+    for row in run() + run_training():
         print(json.dumps(row), flush=True)
     return 0
 

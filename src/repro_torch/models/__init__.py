@@ -1,15 +1,20 @@
 """Model API of the port, with the JAX package's dispatch names.
 
   init_params(cfg, seed, device=None)             -> DecoderLM
+  loss_fn(params, batch, cfg, **kw)               -> (loss, metrics)
   init_cache(cfg, params, batch_size, cache_len)  -> cache
   decode_step(params, cache, token, pos, cfg)     -> (logits, cache)
   prefill(params, tokens, cfg, cache_len, **kw)   -> (logits, cache)
   init_paged_cache / decode_step_paged / prefill_chunk_paged
 
-``params`` is a ``lm.DecoderLM``; caches live on its device.  Dense
-decoders only: other families raise ``NotImplementedError``.
+``params`` is a ``lm.DecoderLM``; caches live on its device.  Training
+passes ``loss_fn`` the flat ``{name: tensor}`` dict of ``lm.param_dict``
+instead.  Dense decoders only: other families raise
+``NotImplementedError``.
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import lm
@@ -18,6 +23,17 @@ from repro_torch.models.lm import DecoderLM
 
 def init_params(cfg: ModelConfig, seed: int = 0, *, device=None) -> DecoderLM:
     return lm.init_params(cfg, seed, device=device)
+
+
+def loss_fn(params, batch, cfg: ModelConfig, *, logit_chunk=None):
+    """Next-token cross-entropy (``lm.loss_fn``) -> (loss, metrics).
+
+    ``params``: the training dict ``{name: tensor}`` (``lm.param_dict``).
+    It runs through ``torch.func.functional_call`` on a meta-device
+    template, so gradients reach its tensors."""
+    return torch.func.functional_call(
+        lm.template(params, cfg), params, (lm.loss_fn, batch, cfg),
+        {"logit_chunk": logit_chunk})
 
 
 def init_cache(cfg: ModelConfig, params: DecoderLM, batch_size: int,
@@ -57,6 +73,6 @@ def prefill_chunk_paged(params: DecoderLM, cache, tokens, pos0,
                                   table_row, lane, block_size=block_size)
 
 
-__all__ = ["DecoderLM", "init_params", "init_cache",
+__all__ = ["DecoderLM", "init_params", "loss_fn", "init_cache",
            "decode_step", "prefill", "init_paged_cache", "decode_step_paged",
            "prefill_chunk_paged", "lm"]

@@ -20,12 +20,19 @@ per-lane block tables ((n_lanes, nb_max) int, -1 = unallocated).
 Where the port differs from JAX: ``decode_step``, ``decode_step_paged``
 and ``prefill_chunk_paged`` write the cache IN PLACE and return the same
 dict (JAX returns a new cache).  Parameters are created with
-``requires_grad=False``: this slice serves.
+``requires_grad=False``: serving holds them as a module.
+
+Training holds the parameters as a flat ``{name: tensor}`` dict keyed as
+``DecoderLM.named_parameters()`` (``param_dict``).  ``models.loss_fn``
+runs the free functions below on such a dict through
+``torch.func.functional_call`` and a parameter-free template
+(``template``), so gradients reach the dict's tensors.  Training
+attention is the plain ``sdpa``, as in the JAX package's training.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 from torch import nn
@@ -85,6 +92,47 @@ class DecoderLM(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.embed.device
+
+    def forward(self, fn, *args, **kwargs):
+        """``fn(self, *args, **kwargs)``: lets ``torch.func.functional_call``
+        run one of this module's free functions (``loss_fn``, ``forward``)
+        with other tensors in place of the parameters."""
+        return fn(self, *args, **kwargs)
+
+
+def param_dict(params: DecoderLM) -> Dict[str, torch.Tensor]:
+    """The training form of the parameters: ``{name: tensor}`` in
+    ``named_parameters()`` order, sharing storage with the module."""
+    return {k: p.detach() for k, p in params.named_parameters()}
+
+
+def _nest(flat: Dict[str, torch.Tensor]) -> Dict:
+    """{"layers.0.attn.q": t, ...} -> the tree ``DecoderLM`` takes."""
+    tree: Dict = {}
+    for name, t in flat.items():
+        *path, leaf = name.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = t
+    tree["layers"] = [tree["layers"][str(i)]
+                      for i in range(len(tree["layers"]))]
+    return tree
+
+
+def from_param_dict(flat: Dict[str, torch.Tensor],
+                    cfg: ModelConfig) -> DecoderLM:
+    """A DecoderLM over the dict's tensors (no copy), e.g. to serve a
+    trained model."""
+    return DecoderLM(cfg, _nest({k: t.detach() for k, t in flat.items()}))
+
+
+def template(flat: Dict[str, torch.Tensor], cfg: ModelConfig) -> DecoderLM:
+    """A DecoderLM of the dict's names, shapes and dtypes on the meta
+    device (no storage), for ``torch.func.functional_call``."""
+    return DecoderLM(cfg, _nest({
+        k: torch.empty(t.shape, dtype=t.dtype, device="meta")
+        for k, t in flat.items()}))
 
 
 # --------------------------------------------------------------------
@@ -146,11 +194,13 @@ def _embed(params: DecoderLM, tokens, cfg: ModelConfig):
     return params.embed[tokens] * scale
 
 
+def _head_weight(params: DecoderLM, cfg: ModelConfig):
+    return params.embed.T if cfg.tie_embeddings else params.lm_head
+
+
 def _head(params: DecoderLM, x, cfg: ModelConfig):
-    x = L.rms_norm(x, params.final_norm, cfg.rms_eps)
-    if cfg.tie_embeddings:
-        return x @ params.embed.T
-    return x @ params.lm_head
+    return L.rms_norm(x, params.final_norm, cfg.rms_eps) \
+        @ _head_weight(params, cfg)
 
 
 def _mlp(layer: DecoderLayer, x, cfg: ModelConfig):
@@ -166,11 +216,11 @@ def _tensor(x, device, dtype=torch.long):
 # forward / prefill
 # --------------------------------------------------------------------
 
-def forward(params: DecoderLM, tokens, cfg: ModelConfig, *,
-            use_kernels: bool = False):
-    """tokens (B,S) -> (logits (B, S, V), aux).  aux is 0 (no MoE).  The
-    JAX ``prefix_emb`` (VLM/audio stub embeddings) belongs to families the
-    port does not run yet."""
+def backbone(params: DecoderLM, tokens, cfg: ModelConfig, *,
+             use_kernels: bool = False):
+    """tokens (B,S) -> (final hidden states (B, S, d) after the final
+    norm, aux).  aux is 0 (no MoE).  The JAX ``prefix_emb`` (VLM/audio
+    stub embeddings) belongs to families the port does not run yet."""
     x = _embed(params, tokens, cfg)
     positions = torch.arange(x.shape[1], device=x.device)
     for layer, g in zip(params.layers, layer_is_global(cfg)):
@@ -179,7 +229,62 @@ def forward(params: DecoderLM, tokens, cfg: ModelConfig, *,
                             window=L.plan_window(cfg, g),
                             positions=positions, use_kernel=use_kernels)
         x = _mlp(layer, x, cfg)
-    return _head(params, x, cfg), torch.zeros((), dtype=torch.float32)
+    return (L.rms_norm(x, params.final_norm, cfg.rms_eps),
+            torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+def forward(params: DecoderLM, tokens, cfg: ModelConfig, *,
+            use_kernels: bool = False):
+    """tokens (B,S) -> (logits (B, S, V), aux)."""
+    x, aux = backbone(params, tokens, cfg, use_kernels=use_kernels)
+    return x @ _head_weight(params, cfg), aux
+
+
+def chunked_ce(x, head, tokens, P: int, chunk: int):
+    """Sequence-chunked cross-entropy: each step computes a (B, chunk, V)
+    slab of logits, never the full (B, S, V).  ``head``: (d, V).
+    Predicts tokens[:, 1:] from hidden states at positions P .. P+S-2.
+    The last chunk is ragged instead of padded and masked (the same
+    sum)."""
+    B, S = tokens.shape
+    n = S - 1
+    hs = x[:, P:P + n]
+    tgt = tokens[:, 1:]
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lo in range(0, n, chunk):
+        logits = (hs[:, lo:lo + chunk] @ head).float()
+        logz = torch.logsumexp(logits, dim=-1)
+        t = tgt[:, lo:lo + chunk, None].long()
+        gold = torch.gather(logits, -1, t)[..., 0]
+        tot = tot + torch.sum(logz - gold)
+    return tot / (B * n)
+
+
+def loss_fn(params: DecoderLM, batch, cfg: ModelConfig, *,
+            logit_chunk: Optional[int] = None):
+    """Next-token cross-entropy.  batch: {"tokens": (B,S) int}.
+
+    Returns (loss, metrics): the mean over predicted positions plus the
+    (zero, for dense models) MoE aux term over the layers.
+    ``logit_chunk``: compute the CE in sequence chunks of this size.
+    Attention runs on the plain path (JAX training builds its loss with
+    ``use_kernels=False``; the flash kernel has no backward)."""
+    if "prefix_emb" in batch:
+        raise NotImplementedError("prefix_emb belongs to families the "
+                                  "port does not run yet")
+    tokens = batch["tokens"]
+    head = _head_weight(params, cfg)
+    if logit_chunk is not None:
+        x, aux = backbone(params, tokens, cfg)
+        ce = chunked_ce(x, head, tokens, 0, logit_chunk)
+    else:
+        logits, aux = forward(params, tokens, cfg)
+        pred = logits[:, :-1].float()                  # predicts tokens[1:]
+        logz = torch.logsumexp(pred, dim=-1)
+        gold = torch.gather(pred, -1, tokens[:, 1:, None].long())[..., 0]
+        ce = torch.mean(logz - gold)
+    aux = aux / max(cfg.num_layers, 1)
+    return ce + aux, {"ce": ce, "aux": aux}
 
 
 def _ring_scatter(kv, S_total: int, C: int):

@@ -20,6 +20,7 @@ from repro.kernels.flash_attention.ops import flash_attention as jax_flash
 from repro.models import layers as jax_layers
 from repro_torch.kernels.flash_attention import kernel, ops
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from test_torch_lm import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}

@@ -10,6 +10,12 @@ import torch
 
 from repro_torch import models
 from repro_torch.configs import get_config, reduced
+from repro_torch.configs.base import AdLoCoConfig
+from repro_torch.core import train_adloco
+from repro_torch.data import MarkovTokenStream
+from repro_torch.launch import train as launch_train
+from repro_torch.models import lm
+from test_torch_lm import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -44,7 +50,11 @@ def test_no_file_imports_jax_or_repro():
 
 def test_importing_every_module_loads_no_jax():
     names = list(_module_names())
-    assert "repro_torch.kernels.flash_attention.ops" in names
+    for name in ("repro_torch.kernels.flash_attention.ops",
+                 "repro_torch.core.adloco",
+                 "repro_torch.kernels.gradstats.ops",
+                 "repro_torch.launch.train"):
+        assert name in names
     code = ("import importlib, sys\n"
             f"for m in {names!r}: importlib.import_module(m)\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] "
@@ -64,3 +74,15 @@ def test_entry_points_default_to_cuda_and_never_fall_back(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         models.init_paged_cache(cfg, 2, 4, 4)
     assert models.init_params(cfg, device="cpu").device.type == "cpu"
+    # training: the loop, the data streams and the launcher
+    params = lm.param_dict(models.init_params(cfg, device="cpu"))
+    acfg = AdLoCoConfig(num_init_trainers=1, nodes_per_gpu=1,
+                        num_outer_steps=1, num_inner_steps=1)
+    streams = [MarkovTokenStream(cfg.vocab_size, 8, device="cpu")]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_adloco(lambda p, b: models.loss_fn(p, b, cfg), [params],
+                     streams, acfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MarkovTokenStream(cfg.vocab_size, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch_train.main([])

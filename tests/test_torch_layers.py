@@ -16,6 +16,7 @@ from repro.configs import reduced as jax_reduced
 from repro.models import layers as J
 from repro_torch.configs import get_config, reduced
 from repro_torch.models import layers as T
+from test_torch_lm import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 JCFG = jax_reduced(jax_get_config("microllama-300m"))

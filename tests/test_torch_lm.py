@@ -22,6 +22,18 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.models import lm
 
 TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One intra-op thread per test.  The suite runs in several worker
+    processes at once, and torch's default of one thread per core in
+    each of them oversubscribes the CPU (the port's tests ran about
+    three times slower).  Test files of the port import this fixture."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 JCFG = jax_reduced(jax_get_config("microllama-300m"))
 CFG = reduced(get_config("microllama-300m"))
 

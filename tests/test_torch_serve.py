@@ -20,7 +20,7 @@ from repro.serve import scheduler as jsched
 from repro.serve import traffic as jtraffic
 from repro_torch import convert, serve
 from repro_torch.serve import scheduler, traffic
-from test_torch_lm import CFG, JCFG, np_params
+from test_torch_lm import CFG, JCFG, np_params, one_torch_thread  # noqa: F401
 
 N_SLOTS, CACHE_LEN, BLOCK, CHUNK = 3, 32, 4, 4
 
