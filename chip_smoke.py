@@ -3,17 +3,20 @@
 
     python3 chip_smoke.py          # from the repository root, one H100
 
-Phases, one JSON line each; any failure raises and exits non-zero:
+Phases, one JSON line each (and a ``phase_seconds`` line after each);
+any failure raises and exits non-zero:
 
   1. environment: card, power limit, torch; build every kernel from the
-     sources in the checkout (one nvcc per source, all started together,
-     sm_90a) and print ptxas' report.
+     three sources in the checkout (one nvcc per source, all started
+     together, sm_90a) and print ptxas' report.
   2. each kernel against its plain version on the card, at the shapes
      the main paths give it and at edge cases, with stated tolerances;
      kernel / plain / library times and the card's bound at the
-     MicroLlama-300M prefill shapes (flash attention) and at the training
+     MicroLlama-300M and hymba-1.5b prefill shapes (flash attention;
+     hymba's with window 1024 and without), at the training
      stats shape (8, 304,636,928) (gradstats, with a bit-identical
-     repeat).
+     repeat) and at falcon-mamba-7b's and hymba-1.5b's prefill shapes
+     (the selective scan, with a bit-identical repeat).
   3. the main path: ``serve.generate`` on microllama-300m at full width
      in bf16 (seeded random weights), 4 prompts of 512 tokens, 32 greedy
      tokens; the flash kernel must launch once per layer.  Prefill and
@@ -22,6 +25,17 @@ Phases, one JSON line each; any failure raises and exits non-zero:
   4. the server: ``DenseBatcher`` and ``ContinuousBatcher`` at full
      width in f32 on one bursty trace; every request answered, no block
      leak, greedy tokens equal across both arms and ``generate``.
+  4b. the SSM and hybrid main paths: ``serve.generate`` on
+     falcon-mamba-7b at full width in bf16 (4 prompts of 512 tokens, 32
+     greedy tokens; the scan kernel must launch 64 times per prefill,
+     flash 0; kernel-vs-plain prefill logits within 5% of their largest
+     magnitude) and on hymba-1.5b at full width in bf16 (2 prompts of
+     1536 tokens, past the 1024-token window, 16 greedy tokens; flash
+     and the scan 32 times each, and each kernel alone against the
+     plain prefill); hymba-1.5b's prefill in f32, both kernels and each
+     alone, within 1e-4 of the logits' largest magnitude; then
+     falcon-mamba-7b in f32 through both batchers on one bursty trace,
+     as in phase 4.
 
   5. training: ``launch.train.run`` (the ``python -m
      repro_torch.launch.train`` entry point) on microllama-300m at full
@@ -63,20 +77,35 @@ sys.path.insert(0, str(ROOT / "src"))
 # FLOP/s by input type (bf16 on the tensor cores, f32 on the CUDA cores)
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# special-function-unit results (exp2 and kin) per clock per SM on
+# compute capability 9.0 (CUDA C++ Programming Guide, arithmetic
+# instruction throughput): every expf issues one
+SFU_PER_CLOCK_PER_SM = 16
 # tests/test_kernels.py:_tol
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+SCAN_SRC = "src/repro_torch/csrc/mamba_scan.cu"
+SCAN_TPU = "src/repro/kernels/mamba_scan/kernel.py:27"
 FLASH_SRC = "src/repro_torch/csrc/flash_attention.cu"
 FLASH_TPU = "src/repro/kernels/flash_attention/kernel.py:30"
 GRADSTATS_SRC = "src/repro_torch/csrc/gradstats.cu"
 COLSUM_TPU = "src/repro/kernels/gradstats/kernel.py:29"
 MOMENTS_TPU = "src/repro/kernels/gradstats/kernel.py:40"
-KERNEL_SOURCES = {"flash_attention": FLASH_SRC, "gradstats": GRADSTATS_SRC}
+KERNEL_SOURCES = {"flash_attention": FLASH_SRC, "gradstats": GRADSTATS_SRC,
+                  "mamba_scan": SCAN_SRC}
 # microllama-300m's parameter count: the columns of the training stats G
 D_MICROLLAMA = 304_636_928
 
 
 def emit(phase: str, **kw) -> None:
     print(json.dumps({"phase": phase, **kw}), flush=True)
+
+
+def timed(name: str, fn, *args):
+    """Run one phase and print its wall seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    emit("phase_seconds", name=name, seconds=time.perf_counter() - t0)
+    return out
 
 
 def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -142,7 +171,8 @@ def phase_env():
 
 def phase_kernels():
     """Flash kernel against its plain version; times at the MicroLlama
-    prefill shapes.  Returns the summary of the main path's shape."""
+    and hymba-1.5b prefill shapes.  Returns the timed rows, MicroLlama's
+    B=4 first."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
@@ -152,6 +182,8 @@ def phase_kernels():
         (4, 512, 16, 4, 64, None, True, bf16, True),   # MicroLlama B=4
         (4, 512, 16, 4, 64, None, True, f32, False),
         (1, 2048, 16, 4, 64, None, True, bf16, True),  # MicroLlama B=1
+        (2, 1536, 25, 5, 64, 1024, True, bf16, True),  # hymba local layers
+        (2, 1536, 25, 5, 64, None, True, bf16, True),  # hymba global layers
         (2, 200, 4, 2, 64, None, True, f32, False),    # ragged S
         (2, 256, 4, 1, 64, 100, True, f32, False),
         (1, 384, 6, 3, 128, 64, True, f32, False),
@@ -159,7 +191,7 @@ def phase_kernels():
         (1, 128, 8, 8, 32, None, True, f32, False),    # hd <= 32
         (1, 192, 4, 2, 64, None, False, f32, False),   # padded bidirectional
     ]
-    summary = None
+    rows = []
     for B, S, H, Hk, hd, window, causal, dt, timed in cases:
         gen = torch.Generator(device="cuda").manual_seed(S + hd)
         q, k, v = (torch.randn((B, S, h, hd), generator=gen, device="cuda")
@@ -176,27 +208,37 @@ def phase_kernels():
                    tol=TOL[dt], ok=ok)
         if timed:
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-            lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
-                                                 enable_gqa=True)
+            # the library call computes the same function: a window
+            # becomes a boolean mask of key i - d, 0 <= d < window
+            mask = None
+            if window is not None:
+                i = torch.arange(S, device="cuda")
+                d = i[:, None] - i[None, :]
+                mask = (d < w) & (d >= 0) if causal else d < w
+
+            def library():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask,
+                    is_causal=causal and mask is None, enable_gqa=True)
+
+            lib = library()
             bound_ms, bound_by, nbytes, flops = flash_bound(q, k, v, causal, w)
             row.update(
                 kernel_ms=cuda_ms(lambda: ops.flash_attention(
                     q, k, v, causal=causal, window=window)),
                 plain_ms=cuda_ms(lambda: flash_attention_ref(
                     q, k, v, causal=causal, window=w), iters=10),
-                library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=causal, enable_gqa=True)),
+                library_ms=cuda_ms(library),
                 library_max_abs_err=(lib.transpose(1, 2).float()
                                      - out.float()).abs().max().item(),
                 bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
                 flops=flops)
-            if summary is None:
-                summary = row
+            rows.append(row)
         emit("kernel_check", kernel="flash_attention", **row)
         if not ok:
             raise AssertionError(f"flash kernel disagrees with its plain "
                                  f"version: {row}")
-    return summary
+    return rows
 
 
 def gradstats_bounds(B: int, D: int, elem: int):
@@ -288,14 +330,230 @@ def phase_gradstats_kernels():
     return summary
 
 
+def sm_clock_hz() -> float:
+    """The card's highest SM clock, as ``nvidia-smi`` reads it."""
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], check=True, capture_output=True,
+        text=True).stdout.split()[0]
+    return float(mhz) * 1e6
+
+
+def scan_bound(B: int, S: int, di: int, n: int, elem: int, sms: int,
+               clock_hz: float):
+    """(bound_ms, bound_by, bytes, flops, exps, t_bytes, t_flops, t_exps):
+    u, dt, Bm, Cm and the f32 neg_A read once, y and h_last written
+    once, against the larger of 6 f32 operations per (b, t, d, k) at the
+    f32 rate (the kernel computes in f32 whatever its input type) and
+    one exp per (b, t, d, k) on the special-function units,
+    ``SFU_PER_CLOCK_PER_SM`` per clock on each SM."""
+    nbytes = (3 * B * S * di + 2 * B * S * n) * elem + 4 * di * n \
+        + B * di * n * elem
+    flops = 6 * B * S * di * n
+    exps = B * S * di * n
+    t_bytes = nbytes / PEAK_BYTES
+    t_flops = flops / PEAK_FLOPS[torch.float32]
+    t_exps = exps / (sms * SFU_PER_CLOCK_PER_SM * clock_hz)
+    t_ops = max(t_flops, t_exps)
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops,
+            exps, t_bytes * 1e3, t_flops * 1e3, t_exps * 1e3)
+
+
+def scan_inputs(B, S, di, n, dt_, seed):
+    """Scan inputs on the card with tests/test_kernels.py's
+    distributions; Bm and Cm are views split off one (B, S, r + 2n)
+    tensor, as ``layers.mamba_forward`` passes them."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    u = torch.randn((B, S, di), generator=gen, device="cuda").to(dt_)
+    dt = (torch.nn.functional.softplus(
+        torch.randn((B, S, di), generator=gen, device="cuda")) * 0.1
+    ).to(dt_)
+    A_log = torch.log(torch.randn((di, n), generator=gen,
+                                  device="cuda").abs() + 0.5)
+    r = 8
+    BC = torch.randn((B, S, r + 2 * n), generator=gen, device="cuda").to(dt_)
+    return u, dt, A_log, BC[..., r:r + n], BC[..., r + n:]
+
+
+def phase_scan_kernels():
+    """The selective-scan kernel against its plain version (the chunked
+    associative scan), with a bit-identical repeat; times at the
+    falcon-mamba-7b and hymba-1.5b prefill shapes.  Returns the summary
+    at falcon-mamba-7b's."""
+    from repro_torch.kernels.mamba_scan import ops
+    from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
+    from repro_torch.models.layers import ssm_scan_seq
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_hz = sm_clock_hz()
+    cases = [  # (B, S, di, n, dtype, timed)
+        (4, 512, 8192, 16, bf16, True),     # falcon-mamba-7b prefill
+        (2, 1536, 3200, 16, bf16, True),    # hymba-1.5b prefill
+        (2, 256, 128, 16, f32, False),      # tests/test_kernels.py cases
+        (1, 200, 96, 8, f32, False),        # ragged S and di
+        (2, 64, 256, 16, f32, False),
+        (1, 128, 128, 16, bf16, False),
+        (1, 1, 96, 8, f32, False),          # S = 1
+        (4, 512, 8192, 16, f32, False),
+    ]
+    summary = None
+    for B, S, di, n, dt_, timed_case in cases:
+        x = scan_inputs(B, S, di, n, dt_, seed=S + di + n)
+        y, h = ops.mamba_scan(*x)
+        y2, h2 = ops.mamba_scan(*x)
+        torch.cuda.synchronize()
+        repeat = torch.equal(y, y2) and torch.equal(h, h2)
+        yr, hr = mamba_scan_ref(*x)
+        err_y = (y.float() - yr.float()).abs().max().item()
+        err_h = (h.float() - hr.float()).abs().max().item()
+        ok = repeat and all(torch.allclose(a.float(), b.float(),
+                                           rtol=TOL[dt_], atol=TOL[dt_])
+                            for a, b in ((y, yr), (h, hr)))
+        blocks = -(-di // 128) * B
+        row = dict(shape=[B, S, di, n], dtype=str(dt_).replace("torch.", ""),
+                   max_abs_err=max(err_y, err_h), y_max_abs_err=err_y,
+                   h_max_abs_err=err_h, repeat_bit_identical=repeat,
+                   tol=TOL[dt_], ok=ok, grid_blocks=blocks, sms=sms,
+                   warps_per_sm=blocks * 4 / sms)
+        if timed_case:
+            u_elem = x[0].element_size()
+            (bound_ms, bound_by, nbytes, flops, exps, bytes_ms, flops_ms,
+             exps_ms) = scan_bound(B, S, di, n, u_elem, sms, clock_hz)
+            kernel_ms = cuda_ms(lambda: ops.mamba_scan(*x), iters=20)
+            row.update(
+                kernel_ms=kernel_ms,
+                plain_ms=cuda_ms(lambda: mamba_scan_ref(*x), iters=3,
+                                 warmup=1),
+                plain_seq_ms=cuda_ms(lambda: ssm_scan_seq(*x), iters=2,
+                                     warmup=1),
+                library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+                bytes=nbytes, flops=flops, exps=exps, elem_bytes=u_elem,
+                bytes_bound_ms=bytes_ms, flops_bound_ms=flops_ms,
+                exps_bound_ms=exps_ms, sm_clock_hz=clock_hz,
+                achieved_bytes_per_s=nbytes / (kernel_ms * 1e-3),
+                share_of_bound=bound_ms / kernel_ms)
+            if summary is None:
+                summary = row
+        emit("kernel_check", kernel="mamba_scan", **row)
+        del x, y, h, y2, h2, yr, hr
+        if not ok:
+            raise AssertionError(f"scan kernel disagrees with its plain "
+                                 f"version: {row}")
+    torch.cuda.empty_cache()
+    return summary
+
+
+def launch_counts():
+    """The launch counter of every kernel wrapper."""
+    from repro_torch.kernels.flash_attention import ops as flash
+    from repro_torch.kernels.gradstats import ops as gs
+    from repro_torch.kernels.mamba_scan import ops as scan
+    return {"flash_attention": flash.launches,
+            "mamba_scan": scan.scan_launches,
+            "gradstats_colsum": gs.colsum_launches,
+            "gradstats_moments": gs.moments_launches}
+
+
+def reset_counts():
+    from repro_torch.kernels.flash_attention import ops as flash
+    from repro_torch.kernels.gradstats import ops as gs
+    from repro_torch.kernels.mamba_scan import ops as scan
+    flash.launches = scan.scan_launches = 0
+    gs.colsum_launches = gs.moments_launches = 0
+
+
+@contextmanager
+def only_kernel(name: str):
+    """While active, ``prefill(use_kernels=True)`` runs the kernel
+    ``name`` alone: every other wrapper is swapped for the plain
+    function that the plain prefill calls in its place."""
+    from repro_torch.kernels.flash_attention import ops as flash
+    from repro_torch.kernels.mamba_scan import ops as scan
+    from repro_torch.models import layers as L
+
+    saved = flash.flash_attention, scan.mamba_scan
+    if name != "flash_attention":
+        flash.flash_attention = L.sdpa
+    if name != "mamba_scan":
+        scan.mamba_scan = L.ssm_scan_seq
+    try:
+        yield
+    finally:
+        flash.flash_attention, scan.mamba_scan = saved
+
+
+def prefill_parity(params, cfg, prompts, cache_len: int, kernels,
+                   rel_tol: float):
+    """Last-position logits of the kernel prefill against the plain
+    prefill's, held within ``rel_tol`` of the plain logits' largest
+    magnitude.  Where the path runs several ``kernels``, each also runs
+    alone, so a gap is traced to one kernel.  Returns (row, faults)."""
+    from repro_torch import models
+
+    def last(**kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _ = models.prefill(params, prompts, cfg, cache_len,
+                                   last_only=True, **kw)
+        torch.cuda.synchronize()
+        return logits[:, -1].float(), time.perf_counter() - t0
+
+    lk, kernel_s = last(use_kernels=True)
+    lp, plain_s = last(use_kernels=False)
+    scale = lp.abs().max().item()
+    tol = rel_tol * scale
+    row = dict(kernel_prefill_wall_s=kernel_s, plain_prefill_wall_s=plain_s,
+               logits_finite=bool(torch.isfinite(lk).all()),
+               last_logits_max_abs_err=(lk - lp).abs().max().item(),
+               last_logits_scale=scale, rel_tol=rel_tol, tol=tol,
+               greedy_next_token_agrees=int(
+                   (lk.argmax(-1) == lp.argmax(-1)).sum()))
+    errs = {"all": row["last_logits_max_abs_err"]}
+    if len(kernels) > 1:
+        alone = {}
+        for name in kernels:
+            with only_kernel(name):
+                la, _ = last(use_kernels=True)
+            alone[name] = (la - lp).abs().max().item()
+        row["one_kernel_max_abs_err"] = alone
+        errs.update(alone)
+    faults = [] if row["logits_finite"] else ["non-finite logits from the "
+                                              "kernel prefill"]
+    faults += [f"kernel prefill ({k}) logits differ from the plain prefill "
+               f"by {e} > {tol}" for k, e in errs.items() if e > tol]
+    return row, faults
+
+
+def check_ids(res, cfg, B: int, new: int):
+    toks = torch.tensor(res.tokens)
+    if toks.shape != (B, new) or toks.min() < 0 \
+            or toks.max() >= cfg.vocab_size:
+        raise AssertionError(f"{cfg.name}: bad generated ids, shape "
+                             f"{tuple(toks.shape)}")
+
+
+def gen_times(res, wall_s: float, B: int, S: int, new: int):
+    return dict(wall_s=wall_s, prefill_ms=res.prefill_ms,
+                decode_ms=res.decode_ms,
+                decode_ms_per_step=res.decode_ms / (new - 1),
+                prefill_tok_per_s=B * S / res.prefill_ms * 1e3,
+                decode_tok_per_s=B * (new - 1) / res.decode_ms * 1e3)
+
+
 @torch.inference_mode()
-def phase_generate():
+def generate_main_path(arch: str, B: int, S: int, new: int, expect: dict):
+    """``serve.generate`` on ``arch`` at full width in bf16 (seeded
+    random weights), with every launch count set to 0 just before the
+    call and read just after; each must equal ``expect``.  Then the
+    kernel prefill's last logits against the plain prefill's, within 5%
+    of their largest magnitude.  Returns the launch counts and (cfg,
+    params, prompts, result)."""
     from repro_torch import models, serve
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import ops
 
-    cfg = get_config("microllama-300m")                   # bf16, full width
-    B, S, new = 4, 512, 32
+    cfg = get_config(arch)                                   # bf16
     t0 = time.perf_counter()
     params = models.init_params(cfg, 0)
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -305,70 +563,60 @@ def phase_generate():
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
 
-    def check_ids(res):
-        toks = torch.tensor(res.tokens)
-        if toks.shape != (B, new) or toks.min() < 0 \
-                or toks.max() >= cfg.vocab_size:
-            raise AssertionError(f"bad generated ids, shape "
-                                 f"{tuple(toks.shape)}")
-
-    def times(res, wall_s):
-        return dict(wall_s=wall_s, prefill_ms=res.prefill_ms,
-                    decode_ms=res.decode_ms,
-                    decode_ms_per_step=res.decode_ms / (new - 1),
-                    prefill_tok_per_s=B * S / res.prefill_ms * 1e3,
-                    decode_tok_per_s=B * (new - 1) / res.decode_ms * 1e3)
-
     torch.cuda.reset_peak_memory_stats()
-    ops.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     res = serve.generate(params, cfg, prompts, max_new_tokens=new)
     wall_s = time.perf_counter() - t0        # ends in a device->host copy
-    launches = ops.launches
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    if launches != cfg.num_layers:
-        raise AssertionError(f"generate's prefill launched the flash kernel "
-                             f"{launches} times, expected {cfg.num_layers}")
-    check_ids(res)
+    check_ids(res, cfg, B, new)
 
-    lk, _ = models.prefill(params, prompts, cfg, S + new, use_kernels=True,
-                           last_only=True)
-    lp, _ = models.prefill(params, prompts, cfg, S + new, use_kernels=False,
-                           last_only=True)
-    lk, lp = lk[:, -1].float(), lp[:, -1].float()
-    if not bool(torch.isfinite(lk).all()):
-        raise AssertionError("non-finite logits from the kernel prefill")
-    err = (lk - lp).abs().max().item()
-    scale = lp.abs().max().item()
-    # bf16: the plain path rounds softmax probabilities to bf16 before
-    # the PV product, the kernel keeps them in f32; 12 layers of bf16
-    # residuals carry that difference to the logits
-    tol = 5e-2 * scale
-    emit("generate", arch=cfg.name, dtype=cfg.dtype, batch=B, prompt=S,
-         new_tokens=new, setup_s=setup_s, flash_launches=launches,
-         launches_per_prefill=launches, **times(res, wall_s),
-         max_memory_allocated=peak, last_logits_max_abs_err=err,
-         last_logits_scale=scale, tol=tol,
-         greedy_next_token_agrees=int((lk.argmax(-1) == lp.argmax(-1)).sum()),
-         first_tokens=[row[:8] for row in res.tokens])
-    if err > tol:
-        raise AssertionError(f"kernel prefill logits differ from the plain "
-                             f"prefill by {err} > {tol}")
+    # bf16: the plain path rounds the softmax probabilities to bf16
+    # before the PV product and forms a block of scan steps at once, the
+    # kernels keep f32 and sum in another order; the layers' bf16
+    # residuals carry that to the logits
+    row, faults = prefill_parity(params, cfg, prompts, S + new,
+                                 [k for k, n in expect.items() if n], 5e-2)
+    emit("generate", arch=cfg.name, dtype=cfg.dtype, layers=cfg.num_layers,
+         d_model=cfg.d_model, params=cfg.param_count(), batch=B, prompt=S,
+         new_tokens=new, setup_s=setup_s, launches=launches,
+         expected_launches=expect, **gen_times(res, wall_s, B, S, new),
+         max_memory_allocated=peak, **row,
+         first_tokens=[r[:8] for r in res.tokens])
+    if {k: launches[k] for k in expect} != expect:
+        raise AssertionError(f"{arch}: generate launched {launches}, "
+                             f"expected {expect}")
+    if faults:
+        raise AssertionError(f"{arch}: {faults}")
+    return launches, (cfg, params, prompts, res)
 
+
+def phase_generate():
+    """The main path on microllama-300m; then the same call sampling at
+    temperature 1, twice: the tokens must repeat."""
+    from repro_torch import serve
+
+    B, S, new = 4, 512, 32
+    launches, (cfg, params, prompts, res) = generate_main_path(
+        "microllama-300m", B, S, new, {"flash_attention": 12,
+                                       "mamba_scan": 0})
     # temperature sampling: noise drawn on the card from per-(seed, row,
     # step) generators, so the same call gives the same tokens
     runs = []
-    for _ in range(2):
-        ops.launches = 0
-        t0 = time.perf_counter()
-        r = serve.generate(params, cfg, prompts, max_new_tokens=new,
-                           temperature=1.0, seed=0)
-        runs.append((r, time.perf_counter() - t0, ops.launches))
-        check_ids(r)
+    with torch.inference_mode():
+        for _ in range(2):
+            reset_counts()
+            t0 = time.perf_counter()
+            r = serve.generate(params, cfg, prompts, max_new_tokens=new,
+                               temperature=1.0, seed=0)
+            runs.append((r, time.perf_counter() - t0,
+                         launch_counts()["flash_attention"]))
+            check_ids(r, cfg, B, new)
     same = runs[0][0].tokens == runs[1][0].tokens
     emit("generate_sampled", temperature=1.0, seed=0, reproducible=same,
          flash_launches=[n for _, _, n in runs],
-         runs=[times(r, w) for r, w, _ in runs],
+         runs=[gen_times(r, w, B, S, new) for r, w, _ in runs],
          positions_equal_to_greedy=sum(
              x == y for a, g in zip(runs[0][0].tokens, res.tokens)
              for x, y in zip(a, g)),
@@ -382,6 +630,39 @@ def phase_generate():
     return launches
 
 
+def phase_generate_ssm():
+    return generate_main_path("falcon-mamba-7b", 4, 512, 32,
+                              {"mamba_scan": 64, "flash_attention": 0})[0]
+
+
+def phase_generate_hybrid():
+    return generate_main_path("hymba-1.5b", 2, 1536, 16,
+                              {"mamba_scan": 32, "flash_attention": 32})[0]
+
+
+@torch.inference_mode()
+def phase_hybrid_f32():
+    """hymba-1.5b at full width in f32, at the hybrid main path's prompt
+    shape: kernel prefill against plain prefill, both kernels and each
+    alone, within 1e-4 of the logits' largest magnitude.  In f32 the
+    two differ only in summation order, so a wrong window mask or head
+    mapping would show far above it."""
+    from repro_torch import models
+    from repro_torch.configs import get_config
+
+    cfg = get_config("hymba-1.5b").with_overrides(dtype="float32")
+    B, S = 2, 1536
+    params = models.init_params(cfg, 0)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                            device="cuda")
+    row, faults = prefill_parity(params, cfg, prompts, S,
+                                 ["flash_attention", "mamba_scan"], 1e-4)
+    emit("prefill_f32", arch=cfg.name, batch=B, prompt=S, **row)
+    if faults:
+        raise AssertionError(f"{cfg.name} f32: {faults}")
+
+
 def _first_divergence(a, b):
     for i, (x, y) in enumerate(zip(a, b)):
         if x != y:
@@ -390,14 +671,16 @@ def _first_divergence(a, b):
 
 
 @torch.inference_mode()
-def phase_server():
+def phase_server(arch: str = "microllama-300m",
+                 kernel: str = "flash_attention"):
+    """Both batchers on ``arch`` at full width in f32, one bursty trace;
+    the dense arm's prefill must launch ``kernel``."""
     from repro_torch import models, serve
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import ops
     from repro_torch.serve import traffic
     from repro_torch.serve.scheduler import ContinuousBatcher, DenseBatcher
 
-    cfg = get_config("microllama-300m").with_overrides(dtype="float32")
+    cfg = get_config(arch).with_overrides(dtype="float32")
     params = models.init_params(cfg, 0)
     spec = traffic.make_arrivals("bursty", n_requests=8, prompt_lo=64,
                                  prompt_hi=512, new_lo=8, new_hi=32)
@@ -411,21 +694,21 @@ def phase_server():
     outs, launches = {}, {}
     for name, batcher in arms.items():
         arrivals = traffic.materialize(spec, cfg.vocab_size)
-        ops.launches = 0
+        reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         rep = batcher.run_trace(arrivals)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches[name] = ops.launches
+        launches[name] = launch_counts()
         outs[name] = {r.rid: r.generated for _, r in arrivals}
-        emit("server", arm=name, dtype=cfg.dtype, wall_s=wall,
-             flash_launches=ops.launches, report=rep.__dict__)
+        emit("server", arch=cfg.name, arm=name, dtype=cfg.dtype, wall_s=wall,
+             launches=launches[name], report=rep.__dict__)
         if rep.requests_finished != len(spec) or rep.requests_pending:
             raise AssertionError(f"{name}: not every request was answered")
     if not arms["paged"].pool.no_leak():
         raise AssertionError("paged arm leaked KV blocks")
-    if launches["dense"] <= 0:
+    if launches["dense"][kernel] <= 0:
         raise AssertionError("the dense arm's prefill never ran the kernel")
 
     prompts = {a.rid: r.tokens for a, (_, r) in
@@ -451,8 +734,10 @@ def phase_server():
                 raise AssertionError(f"greedy tokens diverge away from a "
                                      f"near-tie: {row}")
             excused.append(row)
-    emit("server_parity", requests=len(spec), excused_near_ties=excused,
-         matches_generate=len(excused) == 0)
+    emit("server_parity", arch=cfg.name, requests=len(spec),
+         excused_near_ties=excused, matches_generate=len(excused) == 0)
+    if arch != "microllama-300m":
+        return launches
 
     # f32: kernel prefill against plain prefill at full width, one request
     seq = torch.tensor([prompts[spec[0].rid]], device="cuda")
@@ -584,15 +869,25 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    smi = phase_env()
-    flash = phase_kernels()
-    gs = phase_gradstats_kernels()
-    launches = phase_generate()
-    phase_server()
-    train_launches = phase_train()
+    smi = timed("env", phase_env)
+    flash_rows = timed("kernels_flash", phase_kernels)
+    flash = flash_rows[0]
+    gs = timed("kernels_gradstats", phase_gradstats_kernels)
+    scan = timed("kernels_scan", phase_scan_kernels)
+    launches = timed("generate", phase_generate)
+    timed("server", phase_server)
+    ssm_launches = timed("generate_ssm", phase_generate_ssm)
+    hybrid_launches = timed("generate_hybrid", phase_generate_hybrid)
+    timed("prefill_f32_hybrid", phase_hybrid_f32)
+    timed("server_ssm", phase_server, "falcon-mamba-7b", "mamba_scan")
+    train_launches = timed("train", phase_train)
     kernels = [{
         "name": "flash_attention", "route": "cuda", "source": FLASH_SRC,
-        "replaces": FLASH_TPU, "launches": launches,
+        "replaces": FLASH_TPU, "launches": launches["flash_attention"],
+        "launches_hybrid": hybrid_launches["flash_attention"],
+        "hybrid_ms": {("global" if r["window"] is None
+                       else f"window_{r['window']}"): r["kernel_ms"]
+                      for r in flash_rows if r["shape"][2] == 25},
         "max_abs_err": flash["max_abs_err"], "ms": flash["kernel_ms"],
         "plain_ms": flash["plain_ms"], "bound_ms": flash["bound_ms"],
         "bound_by": flash["bound_by"], "library_ms": flash["library_ms"],
@@ -613,7 +908,14 @@ def main() -> int:
         "bound_ms": gs["moments_bound_ms"],
         "bound_by": gs["moments_bound_by"],
         "library_ms": gs["library_gram_ms"], "shape": gs["shape"],
-        "dtype": gs["dtype"]}]
+        "dtype": gs["dtype"]}, {
+        "name": "mamba_scan", "route": "cuda", "source": SCAN_SRC,
+        "replaces": SCAN_TPU, "launches": ssm_launches["mamba_scan"],
+        "launches_hybrid": hybrid_launches["mamba_scan"],
+        "max_abs_err": scan["max_abs_err"], "ms": scan["kernel_ms"],
+        "plain_ms": scan["plain_ms"], "bound_ms": scan["bound_ms"],
+        "bound_by": scan["bound_by"], "library_ms": None,
+        "shape": scan["shape"], "dtype": scan["dtype"]}]
     print(json.dumps({"kernels": kernels,
                       "seconds": time.perf_counter() - t0}), flush=True)
     print(smi, flush=True)

@@ -6,6 +6,11 @@ Both sides keep the ``(d_in, d_out)`` orientation, so a conversion is a
 copy.  numpy has no bfloat16: bf16 arrays arrive as ml_dtypes' bfloat16
 (read through their 16-bit pattern) and leave as float32, which holds
 every bf16 value exactly.
+
+Leaves are cast to the model dtype, except the Mamba leaves that the
+JAX init keeps in f32 in any model (``layers.MAMBA_F32_LEAVES``: dt_b,
+A_log, D), which stay f32 both ways.  The layer trees of every family
+the port runs (dense, ssm, hybrid) convert with the same walk.
 """
 from __future__ import annotations
 
@@ -16,7 +21,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.lm import DecoderLM, _dtype
+from repro_torch.models.layers import MAMBA_F32_LEAVES
+from repro_torch.models.lm import DecoderLM, _dtype, _nest
 
 
 def _to_tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
@@ -29,10 +35,17 @@ def _to_tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
     return t.to(device=device, dtype=dtype)
 
 
-def _unstack(tree, i: int, dtype, device):
+def _leaf_dtype(path, dtype):
+    if len(path) >= 2 and path[-2] == "mamba" and path[-1] in MAMBA_F32_LEAVES:
+        return torch.float32
+    return dtype
+
+
+def _unstack(tree, i: int, dtype, device, path=()):
     if isinstance(tree, dict):
-        return {k: _unstack(v, i, dtype, device) for k, v in tree.items()}
-    return _to_tensor(np.asarray(tree)[i], dtype, device)
+        return {k: _unstack(v, i, dtype, device, path + (k,))
+                for k, v in tree.items()}
+    return _to_tensor(np.asarray(tree)[i], _leaf_dtype(path, dtype), device)
 
 
 def params_from_numpy(tree: Dict, cfg: ModelConfig, device=None) -> DecoderLM:
@@ -67,13 +80,6 @@ def _stack(layer_trees):
 
 def params_to_numpy(params: DecoderLM) -> Dict:
     """DecoderLM -> the JAX pytree layout (numpy leaves, stacked layers)."""
-    layers = [{"attn_norm": _numpy(l.attn_norm),
-               "attn": {k: _numpy(v) for k, v in l.attn.items()},
-               "mlp_norm": _numpy(l.mlp_norm), "gate": _numpy(l.gate),
-               "up": _numpy(l.up), "down": _numpy(l.down)}
-              for l in params.layers]
-    tree = {"embed": _numpy(params.embed), "layers": _stack(layers),
-            "final_norm": _numpy(params.final_norm)}
-    if params.lm_head is not None:
-        tree["lm_head"] = _numpy(params.lm_head)
+    tree = _nest({k: _numpy(t) for k, t in params.named_parameters()})
+    tree["layers"] = _stack(tree["layers"])
     return tree

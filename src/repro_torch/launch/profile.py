@@ -4,7 +4,10 @@
 
 Serving: ``serve.generate``'s two phases at the main path's shapes
 (microllama-300m, bf16, 4 prompts of 512 tokens, 32 greedy tokens) —
-one prefill (flash kernel on) and the greedy decode steps.  Training:
+one prefill (flash kernel on) and the greedy decode steps; then the SSM
+serving path at ``chip_smoke.py``'s shapes (falcon-mamba-7b, bf16, 4
+prompts of 512 tokens) — one prefill (scan kernel on) and one decode
+step.  Training:
 the phases of one AdLoCo trainer round at the training main path's
 shapes (microllama-300m, bf16 with f32 AdamW state, seq 128, batch 8,
 M = 2 workers) — one inner step, the per-sample gradients of a probe of
@@ -39,6 +42,7 @@ from repro_torch.launch.train import build_loss_fn
 from repro_torch.models import lm
 
 ARCH, BATCH, PROMPT, NEW, TOP = "microllama-300m", 4, 512, 32, 8
+SSM_ARCH = "falcon-mamba-7b"
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_WORKERS = 128, 8, 2
 
 
@@ -117,6 +121,33 @@ def run():
     return out
 
 
+@torch.inference_mode()
+def run_ssm():
+    """falcon-mamba-7b at full width, bf16: one prefill (4 x 512, the
+    scan kernel on) and one greedy decode step, each after a warm-up."""
+    dev = resolve_device()
+    cfg = get_config(SSM_ARCH)
+    params = models.init_params(cfg, 0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
+                            generator=gen, device=dev)
+
+    def prefill():
+        return models.prefill(params, prompts, cfg, PROMPT + NEW,
+                              use_kernels=True, last_only=True)
+
+    row, (logits, cache) = _profiled("ssm_prefill", prefill)
+    tok = torch.argmax(logits[:, -1], dim=-1)
+    step = iter(range(PROMPT, PROMPT + NEW))
+
+    def decode():
+        out, _ = models.decode_step(params, cache, tok, next(step), cfg)
+        return torch.argmax(out, dim=-1)
+
+    row2, _ = _profiled("ssm_decode_step", decode)
+    return [row, row2]
+
+
 def _profiled(name: str, fn, steps: int = 1):
     """Warm ``fn`` up once, then profile one call; returns (summary,
     fn's result)."""
@@ -181,7 +212,7 @@ def main() -> int:
                          capture_output=True, text=True).stdout.strip()
     print(json.dumps({"nvidia_smi": smi, "torch": torch.__version__}),
           flush=True)
-    for row in run() + run_training():
+    for row in run() + run_ssm() + run_training():
         print(json.dumps(row), flush=True)
     return 0
 

@@ -11,7 +11,9 @@ fields, defaults as there).  The trainer pool is orchestrated host-side
 over eager steps on the one device.  The batch statistics run through
 the gradstats kernels (``stats_use_kernel=True``); attention runs on
 the plain path, as in the JAX package's training.  Dense architectures
-only; others raise ``NotImplementedError``.
+only; others raise ``NotImplementedError`` (the models run the SSM and
+hybrid families' loss on the CPU, but training them on the card is a
+later slice of the port).
 """
 from __future__ import annotations
 
@@ -79,6 +81,10 @@ def parse_args(argv=None):
 def make_configs(args):
     """(ModelConfig, AdLoCoConfig) of the parsed flags."""
     cfg = get_config(args.arch)
+    if cfg.arch_type != "dense":
+        raise NotImplementedError(
+            f"the training launcher runs dense decoders only; {cfg.name} is "
+            f"{cfg.arch_type!r}")
     if args.reduced:
         cfg = reduced(cfg)
     acfg = AdLoCoConfig(

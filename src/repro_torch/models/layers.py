@@ -1,14 +1,17 @@
-"""Building blocks of the dense decoder, in PyTorch.
+"""Building blocks of the decoder families the port runs, in PyTorch.
 
-Port of the dense subset of ``repro/models/layers.py``: plain functions
-on tensors, with a parameter group ``p`` passed as a mapping (an
-``nn.ParameterDict`` or a dict of tensors).  Weights keep the JAX
+Port of ``repro/models/layers.py`` for the dense, SSM and hybrid
+families (attention, SwiGLU MLP, the Mamba-1 selective SSM): plain
+functions on tensors, with a parameter group ``p`` passed as a mapping
+(an ``nn.ParameterDict`` or a dict of tensors).  Weights keep the JAX
 package's ``(d_in, d_out)`` orientation, so every projection is
 ``x @ W``.  Shapes use B=batch, S=sequence, d=d_model, H=query heads,
-Hk=kv heads, hd=head_dim.
+Hk=kv heads, hd=head_dim, di=Mamba inner width, n=SSM state size,
+cw=conv width.
 
 The port has no banded sliding-window path (``sdpa_banded``): a local
 layer takes masked full attention, which computes the same function.
+The MoE block is not ported yet.
 """
 from __future__ import annotations
 
@@ -242,3 +245,230 @@ def project_kv_one(p, x, cfg: ModelConfig, pos):
         k = rms_norm(k, p["k_norm"], cfg.rms_eps)
     cos, sin = rope_cos_sin(_rope_pos_for_decode(pos), hd, cfg.rope_theta)
     return apply_rope(k, cos, sin), v
+
+
+# --------------------------------------------------------------------
+# Mamba-1 selective SSM
+# --------------------------------------------------------------------
+
+# Parameters of a Mamba block that stay f32 in a bf16 model, as in the
+# JAX init: the dt bias, A_log and the skip weight D.
+MAMBA_F32_LEAVES = ("dt_b", "A_log", "D")
+
+
+def init_mamba(gen: torch.Generator, cfg: ModelConfig, dtype):
+    ssm = cfg.ssm
+    d, di, n, dtr = cfg.d_model, cfg.d_inner, ssm.state_dim, cfg.dt_rank
+    dev, f32 = gen.device, torch.float32
+    # S4D-real A init: A[:, j] = -(j+1); dt drawn log-uniform in
+    # [1e-3, 1e-1] and stored through the inverse softplus
+    A = torch.arange(1, n + 1, dtype=f32, device=dev)[None, :].repeat(di, 1)
+    lo, hi = math.log(1e-3), math.log(1e-1)
+    u = torch.rand((di,), generator=gen, device=dev, dtype=f32)
+    dt_bias = torch.log(torch.expm1(torch.exp(lo + (hi - lo) * u)))
+    return {
+        "in_proj": dense_init(gen, (d, 2 * di), dtype=dtype),
+        "conv_w": dense_init(gen, (ssm.conv_dim, di), scale=0.5, dtype=dtype),
+        "conv_b": torch.zeros((di,), dtype=dtype, device=dev),
+        "x_proj": dense_init(gen, (di, dtr + 2 * n), dtype=dtype),
+        "dt_w": dense_init(gen, (dtr, di), dtype=dtype),
+        "dt_b": dt_bias,
+        "A_log": torch.log(A),
+        "D": torch.ones((di,), dtype=f32, device=dev),
+        "out_proj": dense_init(gen, (di, d), dtype=dtype),
+    }
+
+
+def causal_conv1d(x, w, b, prev=None):
+    """Depthwise causal conv: x (B,S,di), w (cw,di) -> (B,S,di).
+
+    ``prev``: (B,cw-1,di) raw inputs preceding x (the carried conv state
+    of chunked prefill); None = zeros (sequence start).  The taps are
+    unrolled and summed in x's dtype, as in JAX (``F.conv1d`` would
+    accumulate a bf16 input in f32)."""
+    cw = w.shape[0]
+    if prev is None:
+        xp = F.pad(x, (0, 0, cw - 1, 0))
+    else:
+        xp = torch.cat([prev.to(x.dtype), x], dim=1)
+    S = x.shape[1]
+    out = torch.zeros_like(x)
+    for i in range(cw):
+        out = out + xp[:, i:i + S] * w[i][None, None]
+    return out + b[None, None]
+
+
+def conv_state(x_in, cw: int):
+    """The decode conv state after a sequence: its last cw-1 raw inputs
+    (B, cw-1, di), left-padded with zeros when the sequence is shorter.
+    (JAX's one-shot prefill slices ``x_in[:, -(cw-1):]``, which is short
+    for a 1- or 2-token prompt; its chunked path pads, as here.)"""
+    return F.pad(x_in, (0, 0, cw - 1, 0))[:, -(cw - 1):]
+
+
+def ssm_scan_seq(u, dt, A_log, Bmat, Cmat, sub: int = 16, h0=None):
+    """Selective scan as a sequential recurrence, forward only.
+
+    h_t = exp(dt_t A) h_{t-1} + dt_t u_t B_t,  y_t = <h_t, C_t>, with
+    A = -exp(A_log) and h in f32 throughout, from ``h0`` (B,di,n) or
+    zeros.  Shapes as in ``ssm_scan_chunked``.  Per block of ``sub``
+    steps the decays exp(dt A) and injections dt u B are formed at once
+    (the same elementwise values JAX's unrolled steps compute), then
+    each step is one fused multiply-add on the (B,di,n) state; y
+    follows from the block's states.  The state buffer is written with
+    ``out=``, so no input may need a gradient (training uses
+    ``ssm_scan_chunked``).  Returns y (B,S,di) and h_last (B,di,n), both
+    in u's dtype.
+    """
+    Bsz, S, di = u.shape
+    n = A_log.shape[1]
+    negA = -torch.exp(A_log.float())                      # (di,n)
+    h = (torch.zeros((Bsz, di, n), dtype=torch.float32, device=u.device)
+         if h0 is None else h0.float())
+    y = torch.empty((Bsz, S, di), dtype=torch.float32, device=u.device)
+    hs = torch.empty((sub, Bsz, di, n), dtype=torch.float32, device=u.device)
+    for lo in range(0, S, sub):
+        hi = min(lo + sub, S)
+        dtf = dt[:, lo:hi].float()
+        duf = dtf * u[:, lo:hi].float()                   # (B,s,di)
+        a = torch.exp(dtf[..., None] * negA)              # (B,s,di,n)
+        x = duf[..., None] * Bmat[:, lo:hi, None, :].float()
+        a, x = a.transpose(0, 1), x.transpose(0, 1)       # (s,B,di,n)
+        for t in range(hi - lo):
+            h = torch.addcmul(x[t], a[t], h, out=hs[t])
+        y[:, lo:hi] = torch.einsum("sbdn,bsn->bsd", hs[:hi - lo],
+                                   Cmat[:, lo:hi].float())
+    # h is a view of the step buffer: hand back a tensor of its own
+    return y.to(u.dtype), h.to(u.dtype, copy=True)
+
+
+def _assoc_scan(a, b):
+    """Inclusive scan along axis 1 of the affine maps h -> a h + b with
+    JAX's ``combine``: (a_l, b_l) then (a_r, b_r) gives
+    (a_l a_r, b_r + a_r b_l).  Hillis-Steele, log2(len) out-of-place
+    passes, so autograd differentiates it."""
+    c = a.shape[1]
+    off = 1
+    while off < c:
+        a_prev = F.pad(a[:, :c - off], (0, 0, 0, 0, off, 0), value=1.0)
+        b_prev = F.pad(b[:, :c - off], (0, 0, 0, 0, off, 0))
+        b = b + a * b_prev
+        a = a * a_prev
+        off *= 2
+    return a, b
+
+
+def ssm_scan_chunked(u, dt, A_log, Bmat, Cmat, chunk: int = 256):
+    """Selective scan h_t = exp(dt_t A) h_{t-1} + dt_t B_t u_t,
+    y_t = <C_t, h_t>, A = -exp(A_log).
+
+    u, dt: (B,S,di); Bmat, Cmat: (B,S,n); A_log: (di,n).  A loop over
+    chunks of ``chunk`` steps carries the f32 state; inside a chunk a
+    log-depth associative scan (differentiable, the training path).  A
+    ragged last chunk is shorter instead of padded.  Returns y (B,S,di)
+    and the final state (B,di,n), both in u's dtype.
+    """
+    Bsz, S, di = u.shape
+    n = A_log.shape[1]
+    negA = -torch.exp(A_log.float())
+    h0 = torch.zeros((Bsz, di, n), dtype=torch.float32, device=u.device)
+    ys = []
+    for lo in range(0, S, chunk):
+        hi = min(lo + chunk, S)
+        dtf = dt[:, lo:hi].float()
+        a = torch.exp(dtf[..., None] * negA)                # (B,c,di,n)
+        x_in = ((dtf * u[:, lo:hi].float())[..., None]
+                * Bmat[:, lo:hi].float()[:, :, None, :])    # (B,c,di,n)
+        a_sc, x_sc = _assoc_scan(a, x_in)
+        h = a_sc * h0[:, None] + x_sc
+        ys.append(torch.einsum("bcdn,bcn->bcd", h,
+                               Cmat[:, lo:hi].float()).to(u.dtype))
+        h0 = h[:, -1]
+    return torch.cat(ys, dim=1), h0.to(u.dtype)
+
+
+def _mamba_in(p, x, cfg: ModelConfig, prev=None):
+    """The shared front of a Mamba block: (x_in, z, x_c, dt, Bm, Cm)."""
+    n, dtr = cfg.ssm.state_dim, cfg.dt_rank
+    x_in, z = torch.chunk(x @ p["in_proj"], 2, dim=-1)
+    x_c = F.silu(causal_conv1d(x_in, p["conv_w"], p["conv_b"], prev=prev))
+    dt_r, Bm, Cm = torch.split(x_c @ p["x_proj"], [dtr, n, n], dim=-1)
+    dt = F.softplus((dt_r @ p["dt_w"]).float()
+                    + p["dt_b"][None, None]).to(x.dtype)
+    return x_in, z, x_c, dt, Bm, Cm
+
+
+def _mamba_out(p, x, y, x_c, z):
+    y = y + x_c * p["D"][None, None].to(x.dtype)
+    return (y * F.silu(z)) @ p["out_proj"]
+
+
+def mamba_forward(p, x, cfg: ModelConfig, *, use_kernel=False,
+                  return_state=False, scan_impl: str = "assoc"):
+    """Full-sequence Mamba block: x (B,S,d) -> (B,S,d).
+
+    ``use_kernel`` routes the scan through
+    ``kernels.mamba_scan.ops.mamba_scan`` (the hand-written kernel on a
+    CUDA tensor, its plain version on a CPU tensor); otherwise
+    ``scan_impl`` picks ``"seq"`` (``ssm_scan_seq``, prefill) or
+    ``"assoc"`` (``ssm_scan_chunked``, the JAX default).
+    ``return_state=True`` also returns the decode state {"conv":
+    (B,cw-1,di) raw conv inputs, "ssm": (B,di,n)} from the same scan."""
+    x_in, z, x_c, dt, Bm, Cm = _mamba_in(p, x, cfg)
+    if use_kernel:
+        from repro_torch.kernels.mamba_scan.ops import mamba_scan
+        y, h_last = mamba_scan(x_c, dt, p["A_log"], Bm, Cm)
+    elif scan_impl == "seq":
+        y, h_last = ssm_scan_seq(x_c, dt, p["A_log"], Bm, Cm)
+    elif scan_impl == "assoc":
+        y, h_last = ssm_scan_chunked(x_c, dt, p["A_log"], Bm, Cm)
+    else:
+        raise ValueError(f"scan_impl={scan_impl!r}: 'seq' or 'assoc'")
+    out = _mamba_out(p, x, y, x_c, z)
+    if return_state:
+        return out, {"conv": conv_state(x_in, cfg.ssm.conv_dim),
+                     "ssm": h_last}
+    return out
+
+
+def mamba_decode(p, x, cfg: ModelConfig, conv_state, ssm_state):
+    """One-token Mamba step.
+
+    x: (B,1,d); conv_state: (B,cw-1,di) previous raw inputs; ssm_state:
+    (B,di,n).  Returns (y (B,1,d), new conv state, new ssm state).  The
+    casts are JAX's: (dt x_c) B is formed in the model dtype and then
+    cast to f32, and y contracts the state cast back to the model dtype
+    with C in the model dtype."""
+    n, dtr = cfg.ssm.state_dim, cfg.dt_rank
+    x_in, z = torch.chunk(x[:, 0] @ p["in_proj"], 2, dim=-1)     # (B,di)
+    window = torch.cat([conv_state, x_in[:, None]], dim=1)       # (B,cw,di)
+    x_c = torch.einsum("bcd,cd->bd", window, p["conv_w"]) + p["conv_b"][None]
+    x_c = F.silu(x_c)
+    dt_r, Bm, Cm = torch.split(x_c @ p["x_proj"], [dtr, n, n], dim=-1)
+    dt = F.softplus((dt_r @ p["dt_w"]).float()
+                    + p["dt_b"][None]).to(x.dtype)
+    a = torch.exp(dt[..., None] * (-torch.exp(p["A_log"]))[None])  # (B,di,n)
+    h = (a * ssm_state.float()
+         + ((dt * x_c)[..., None] * Bm[:, None, :]).float())
+    y = torch.einsum("bdn,bn->bd", h.to(x.dtype), Cm)
+    y = y + x_c * p["D"][None].to(x.dtype)
+    out = (y * F.silu(z)) @ p["out_proj"]
+    return out[:, None], window[:, 1:], h.to(ssm_state.dtype)
+
+
+def mamba_forward_chunk(p, x, cfg: ModelConfig, conv_state, ssm_state):
+    """``mamba_forward`` continued from a carried decode state: the
+    chunked-prefill path.
+
+    x: (B,S,d) chunk; conv_state: (B,cw-1,di) raw conv inputs before
+    the chunk; ssm_state: (B,di,n).  Runs ``ssm_scan_seq`` from
+    ``h0=ssm_state``, as JAX does (its Pallas scan takes no initial
+    state).  Returns (out (B,S,d), {"conv", "ssm"} as in
+    ``mamba_forward(return_state=True)``)."""
+    cw = cfg.ssm.conv_dim
+    x_in, z, x_c, dt, Bm, Cm = _mamba_in(p, x, cfg, prev=conv_state)
+    y, h_last = ssm_scan_seq(x_c, dt, p["A_log"], Bm, Cm, h0=ssm_state)
+    out = _mamba_out(p, x, y, x_c, z)
+    new_conv = torch.cat([conv_state.to(x_in.dtype), x_in],
+                         dim=1)[:, -(cw - 1):]
+    return out, {"conv": new_conv, "ssm": h_last}

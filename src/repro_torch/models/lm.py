@@ -1,25 +1,35 @@
-"""Dense decoder-only language model in PyTorch.
+"""Decoder-only language model in PyTorch: dense, SSM and hybrid.
 
-Port of the dense subset of ``repro/models/lm.py``.  ``DecoderLM`` holds
-the parameters (an ``nn.ModuleList`` of ``DecoderLayer``s, weights in
-JAX's ``(d_in, d_out)`` orientation); the entry points below are plain
-functions over it, as in the JAX package, with a Python loop over the
-layers where JAX scans.  Architectures other than ``dense`` raise
-``NotImplementedError``.
+Port of ``repro/models/lm.py`` for three families: ``dense`` (attention
++ SwiGLU MLP), ``ssm`` (a Mamba block per layer, attention-free:
+falcon-mamba-7b) and ``hybrid`` (attention and Mamba heads in parallel
+on the same normed input, averaged, then the MLP: hymba-1.5b).
+``DecoderLM`` holds the parameters (an ``nn.ModuleList`` of
+``DecoderLayer``s, weights in JAX's ``(d_in, d_out)`` orientation); the
+entry points below are plain functions over it, as in the JAX package,
+with a Python loop over the layers where JAX scans.  MoE, VLM/audio
+prefixes and encoder-decoder models raise ``NotImplementedError``.
 
 Cache layout (decode), as in JAX:
-  k, v    : (L, B, C, Hk, hd)      C = cache length (ring buffer)
+  k, v      : (L, B, C, Hk, hd)      C = cache length (ring buffer)
+  conv, ssm : (L, B, cw-1, di), (L, B, di, n)   ssm/hybrid, model dtype
 Ring-buffer semantics: position p lives in slot p % C; the absolute
 position held by slot i at decode position ``pos`` is
 pos - ((pos - i) % C).
 
 Paged layout: kp, vp : (L, num_blocks + 1, block_size, Hk, hd), the last
 block a scratch block that masked writes land in, addressed through
-per-lane block tables ((n_lanes, nb_max) int, -1 = unallocated).
+per-lane block tables ((n_lanes, nb_max) int, -1 = unallocated).  The
+SSM state is per lane and needs no paging: conv, ssm as above with
+n_lanes in place of B.
 
 Where the port differs from JAX: ``decode_step``, ``decode_step_paged``
 and ``prefill_chunk_paged`` write the cache IN PLACE and return the same
-dict (JAX returns a new cache).  Parameters are created with
+dict (JAX returns a new cache).  ``prefill``'s conv state is left-padded
+with zeros for prompts shorter than cw-1 tokens (JAX's one-shot prefill
+returns a shorter state there; its chunked path pads, as here).
+``prefill`` runs the sequential scan (JAX's default) without JAX's
+``REPRO_SSM_SCAN`` switch.  Parameters are created with
 ``requires_grad=False``: serving holds them as a module.
 
 Training holds the parameters as a flat ``{name: tensor}`` dict keyed as
@@ -49,35 +59,62 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
     return _DTYPES[cfg.dtype]
 
 
+_ARCHS = ("dense", "ssm", "hybrid")
+
+
 def _check_arch(cfg: ModelConfig) -> None:
-    if cfg.arch_type != "dense" or cfg.is_encoder_decoder:
+    if (cfg.arch_type not in _ARCHS or cfg.moe is not None
+            or cfg.is_encoder_decoder or cfg.frontend is not None
+            or cfg.num_prefix_tokens):
         raise NotImplementedError(
-            f"the PyTorch port runs dense decoders only; {cfg.name} is "
-            f"{cfg.arch_type!r}")
+            f"the PyTorch port runs dense, ssm and hybrid decoders; "
+            f"{cfg.name} is {cfg.arch_type!r}")
+
+
+def _has_attn(cfg: ModelConfig) -> bool:
+    return cfg.arch_type != "ssm"
+
+
+def _has_mamba(cfg: ModelConfig) -> bool:
+    return cfg.arch_type == "ssm" or cfg.hybrid
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
+# A layer's parameter groups in registration (and so named_parameters)
+# order: dense {attn_norm, attn, mlp_norm, gate, up, down}; ssm {norm,
+# mamba}; hybrid the dense groups plus mamba.
+_LAYER_KEYS = ("norm", "attn_norm", "attn", "mamba", "mlp_norm", "gate",
+               "up", "down")
+
+
 class DecoderLayer(nn.Module):
-    """One pre-norm block: attention + SwiGLU MLP."""
+    """One pre-norm block, from the JAX layer tree: attention + SwiGLU
+    MLP (dense), a Mamba block (ssm), or both heads and the MLP
+    (hybrid)."""
 
     def __init__(self, tree: Dict):
         super().__init__()
-        self.attn_norm = _param(tree["attn_norm"])
-        self.attn = nn.ParameterDict(
-            {k: _param(v) for k, v in tree["attn"].items()})
-        self.mlp_norm = _param(tree["mlp_norm"])
-        self.gate = _param(tree["gate"])
-        self.up = _param(tree["up"])
-        self.down = _param(tree["down"])
+        unknown = set(tree) - set(_LAYER_KEYS)
+        if unknown:
+            raise ValueError(f"unknown layer parameters {sorted(unknown)}")
+        for key in _LAYER_KEYS:
+            if key not in tree:
+                continue
+            leaf = tree[key]
+            if isinstance(leaf, dict):
+                self.register_module(key, nn.ParameterDict(
+                    {k: _param(v) for k, v in leaf.items()}))
+            else:
+                self.register_parameter(key, _param(leaf))
 
 
 class DecoderLM(nn.Module):
-    """Parameters of a dense decoder.  ``tree`` is the JAX parameter
-    layout with the layers as a list instead of a stacked axis:
-    {"embed", "layers": [layer trees], "final_norm"[, "lm_head"]}."""
+    """Parameters of a decoder (dense, ssm or hybrid).  ``tree`` is the
+    JAX parameter layout with the layers as a list instead of a stacked
+    axis: {"embed", "layers": [layer trees], "final_norm"[, "lm_head"]}."""
 
     def __init__(self, cfg: ModelConfig, tree: Dict):
         super().__init__()
@@ -141,14 +178,20 @@ def template(flat: Dict[str, torch.Tensor], cfg: ModelConfig) -> DecoderLM:
 
 def init_layer(gen: torch.Generator, cfg: ModelConfig) -> Dict:
     dt, dev, d = _dtype(cfg), gen.device, cfg.d_model
-    return {
-        "attn_norm": torch.zeros((d,), dtype=dt, device=dev),
-        "attn": L.init_attention(gen, cfg, dt),
+    if cfg.arch_type == "ssm":
+        return {"norm": torch.zeros((d,), dtype=dt, device=dev),
+                "mamba": L.init_mamba(gen, cfg, dt)}
+    p = {"attn_norm": torch.zeros((d,), dtype=dt, device=dev),
+         "attn": L.init_attention(gen, cfg, dt)}
+    if cfg.hybrid:
+        p["mamba"] = L.init_mamba(gen, cfg, dt)
+    p.update({
         "mlp_norm": torch.zeros((d,), dtype=dt, device=dev),
         "gate": L.dense_init(gen, (d, cfg.d_ff), dtype=dt),
         "up": L.dense_init(gen, (d, cfg.d_ff), dtype=dt),
         "down": L.dense_init(gen, (cfg.d_ff, d), dtype=dt),
-    }
+    })
+    return p
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, *,
@@ -212,6 +255,24 @@ def _tensor(x, device, dtype=torch.long):
     return torch.as_tensor(x, dtype=dtype, device=device)
 
 
+def _layer_apply(layer: DecoderLayer, x, cfg: ModelConfig, is_global: bool,
+                 positions, use_kernels: bool):
+    """One layer, full sequence (training / ``forward``).  The Mamba
+    blocks run the associative scan, JAX's ``mamba_forward`` default."""
+    if cfg.arch_type == "ssm":
+        h = L.rms_norm(x, layer.norm, cfg.rms_eps)
+        return x + L.mamba_forward(layer.mamba, h, cfg,
+                                   use_kernel=use_kernels)
+    h = L.rms_norm(x, layer.attn_norm, cfg.rms_eps)
+    a = L.attention(layer.attn, h, cfg, causal=True,
+                    window=L.plan_window(cfg, is_global),
+                    positions=positions, use_kernel=use_kernels)
+    if cfg.hybrid:
+        m = L.mamba_forward(layer.mamba, h, cfg, use_kernel=use_kernels)
+        a = 0.5 * (a + m)          # Hymba's parallel-head mean fusion
+    return _mlp(layer, x + a, cfg)
+
+
 # --------------------------------------------------------------------
 # forward / prefill
 # --------------------------------------------------------------------
@@ -224,11 +285,7 @@ def backbone(params: DecoderLM, tokens, cfg: ModelConfig, *,
     x = _embed(params, tokens, cfg)
     positions = torch.arange(x.shape[1], device=x.device)
     for layer, g in zip(params.layers, layer_is_global(cfg)):
-        h = L.rms_norm(x, layer.attn_norm, cfg.rms_eps)
-        x = x + L.attention(layer.attn, h, cfg, causal=True,
-                            window=L.plan_window(cfg, g),
-                            positions=positions, use_kernel=use_kernels)
-        x = _mlp(layer, x, cfg)
+        x = _layer_apply(layer, x, cfg, g, positions, use_kernels)
     return (L.rms_norm(x, params.final_norm, cfg.rms_eps),
             torch.zeros((), dtype=torch.float32, device=x.device))
 
@@ -305,13 +362,29 @@ def prefill(params: DecoderLM, tokens, cfg: ModelConfig, cache_len: int, *,
     logits only (shape (B, 1, V)).
 
     ``use_kernels=True`` runs attention through
-    ``kernels.flash_attention.ops.flash_attention``: the hand-written
-    kernel on a CUDA tensor, its plain version on a CPU tensor."""
+    ``kernels.flash_attention.ops.flash_attention`` and the Mamba scan
+    through ``kernels.mamba_scan.ops.mamba_scan``: the hand-written
+    kernels on a CUDA tensor, their plain versions on a CPU tensor.
+    Without it the Mamba blocks run the sequential scan
+    (``layers.ssm_scan_seq``), JAX prefill's default.  The Mamba blocks
+    also return their decode state from the same scan."""
     B, S_total = tokens.shape
     x = _embed(params, tokens, cfg)
     positions = torch.arange(S_total, device=x.device)
-    ks, vs = [], []
+    cache: Dict[str, list] = {}
+
+    def mamba(layer, h):
+        y, state = L.mamba_forward(layer.mamba, h, cfg,
+                                   use_kernel=use_kernels,
+                                   return_state=True, scan_impl="seq")
+        for name, t in state.items():
+            cache.setdefault(name, []).append(t)
+        return y
+
     for layer, g in zip(params.layers, layer_is_global(cfg)):
+        if cfg.arch_type == "ssm":
+            x = x + mamba(layer, L.rms_norm(x, layer.norm, cfg.rms_eps))
+            continue
         window = L.plan_window(cfg, g)
         h = L.rms_norm(x, layer.attn_norm, cfg.rms_eps)
         q, k, v = L.qkv_project(layer.attn, h, cfg, positions)
@@ -319,13 +392,16 @@ def prefill(params: DecoderLM, tokens, cfg: ModelConfig, cache_len: int, *,
             a = flash_ops.flash_attention(q, k, v, causal=True, window=window)
         else:
             a = L.sdpa(q, k, v, causal=True, window=window)
-        x = x + a.reshape(B, S_total, cfg.q_dim) @ layer.attn["o"]
-        ks.append(_ring_scatter(k, S_total, cache_len))
-        vs.append(_ring_scatter(v, S_total, cache_len))
-        x = _mlp(layer, x, cfg)
+        a = a.reshape(B, S_total, cfg.q_dim) @ layer.attn["o"]
+        cache.setdefault("k", []).append(_ring_scatter(k, S_total, cache_len))
+        cache.setdefault("v", []).append(_ring_scatter(v, S_total, cache_len))
+        if cfg.hybrid:
+            a = 0.5 * (a + mamba(layer, h))
+        x = _mlp(layer, x + a, cfg)
     if last_only:
         x = x[:, -1:]
-    return _head(params, x, cfg), {"k": torch.stack(ks), "v": torch.stack(vs)}
+    return (_head(params, x, cfg),
+            {name: torch.stack(ts) for name, ts in cache.items()})
 
 
 # --------------------------------------------------------------------
@@ -336,10 +412,36 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
                device=None) -> Dict[str, torch.Tensor]:
     _check_arch(cfg)
     dev = resolve_device(device)
-    shape = (cfg.num_layers, batch, cache_len, cfg.num_kv_heads,
-             cfg.resolved_head_dim)
-    return {"k": torch.zeros(shape, dtype=_dtype(cfg), device=dev),
-            "v": torch.zeros(shape, dtype=_dtype(cfg), device=dev)}
+    cache = {}
+    if _has_attn(cfg):
+        shape = (cfg.num_layers, batch, cache_len, cfg.num_kv_heads,
+                 cfg.resolved_head_dim)
+        cache["k"] = torch.zeros(shape, dtype=_dtype(cfg), device=dev)
+        cache["v"] = torch.zeros(shape, dtype=_dtype(cfg), device=dev)
+    cache.update(_ssm_state(cfg, batch, dev))
+    return cache
+
+
+def _ssm_state(cfg: ModelConfig, lanes: int, dev) -> Dict[str, torch.Tensor]:
+    """Zeroed per-lane Mamba decode state (none for dense decoders)."""
+    if not _has_mamba(cfg):
+        return {}
+    Ln, ssm, di = cfg.num_layers, cfg.ssm, cfg.d_inner
+    return {"conv": torch.zeros((Ln, lanes, ssm.conv_dim - 1, di),
+                                dtype=_dtype(cfg), device=dev),
+            "ssm": torch.zeros((Ln, lanes, di, ssm.state_dim),
+                               dtype=_dtype(cfg), device=dev)}
+
+
+def _mamba_decode_into(layer: DecoderLayer, h, cfg: ModelConfig,
+                       conv_cache, ssm_cache, active=None):
+    """One-token Mamba step on this layer's (B, cw-1, di) / (B, di, n)
+    state views, written in place (inactive lanes keep theirs).
+    Returns the block's output (B, 1, d)."""
+    y, conv, ssm = L.mamba_decode(layer.mamba, h, cfg, conv_cache, ssm_cache)
+    conv_cache.copy_(_mask_state(conv, conv_cache, active))
+    ssm_cache.copy_(_mask_state(ssm, ssm_cache, active))
+    return y
 
 
 def _mask_state(new, old, active):
@@ -352,10 +454,16 @@ def _mask_state(new, old, active):
 
 
 def _decode_layer(layer: DecoderLayer, x, cfg: ModelConfig, is_global: bool,
-                  k_cache, v_cache, pos, C: int, active=None):
-    """One layer, one token.  k_cache/v_cache: this layer's (B,C,Hk,hd)
-    views, written in place at the token's slot.  ``active``: optional
-    (B,) bool lane mask — inactive lanes keep their cache rows."""
+                  cs: Dict[str, torch.Tensor], pos, C: int, active=None):
+    """One layer, one token.  ``cs``: this layer's cache views ((B,C,Hk,hd)
+    k/v, (B,cw-1,di) conv, (B,di,n) ssm), written in place: k/v at the
+    token's slot.  ``active``: optional (B,) bool lane mask — inactive
+    lanes keep their cache rows and state."""
+    if cfg.arch_type == "ssm":
+        h = L.rms_norm(x, layer.norm, cfg.rms_eps)
+        return x + _mamba_decode_into(layer, h, cfg, cs["conv"], cs["ssm"],
+                                      active)
+    k_cache, v_cache = cs["k"], cs["v"]
     h = L.rms_norm(x, layer.attn_norm, cfg.rms_eps)
     k_new, v_new = L.project_kv_one(layer.attn, h, cfg, pos)
     slot = pos % C
@@ -373,6 +481,9 @@ def _decode_layer(layer: DecoderLayer, x, cfg: ModelConfig, is_global: bool,
     a = L.decode_attention(layer.attn, h, cfg, k_cache, v_cache, pos,
                            window=_decode_window(cfg, is_global),
                            kv_pos_of_slot=kv_pos)
+    if cfg.hybrid:
+        a = 0.5 * (a + _mamba_decode_into(layer, h, cfg, cs["conv"],
+                                          cs["ssm"], active))
     return _mlp(layer, x + a, cfg)
 
 
@@ -387,9 +498,10 @@ def decode_step(params: DecoderLM, cache, token, pos, cfg: ModelConfig, *,
     if active is not None:
         active = _tensor(active, dev, torch.bool)
     x = _embed(params, token, cfg)[:, None, :]
-    C = cache["k"].shape[2]
+    C = cache["k"].shape[2] if "k" in cache else 0
     for i, (layer, g) in enumerate(zip(params.layers, layer_is_global(cfg))):
-        x = _decode_layer(layer, x, cfg, g, cache["k"][i], cache["v"][i],
+        x = _decode_layer(layer, x, cfg, g,
+                          {name: t[i] for name, t in cache.items()},
                           pos, C, active=active)
     return _head(params, x[:, 0], cfg), cache
 
@@ -400,15 +512,19 @@ def decode_step(params: DecoderLM, cache, token, pos, cfg: ModelConfig, *,
 
 def init_paged_cache(cfg: ModelConfig, n_lanes: int, num_blocks: int,
                      block_size: int, *, device=None):
-    """Block pools (L, num_blocks + 1, block_size, Hk, hd); the last
-    block is scratch.  ``n_lanes`` sizes per-lane state, which dense
-    decoders do not have."""
+    """Block pools (L, num_blocks + 1, block_size, Hk, hd), the last
+    block scratch, for families with attention; per-lane Mamba state
+    (L, n_lanes, ...) for families with a Mamba block."""
     _check_arch(cfg)
     dev = resolve_device(device)
-    shape = (cfg.num_layers, num_blocks + 1, block_size, cfg.num_kv_heads,
-             cfg.resolved_head_dim)
-    return {"kp": torch.zeros(shape, dtype=_dtype(cfg), device=dev),
-            "vp": torch.zeros(shape, dtype=_dtype(cfg), device=dev)}
+    cache = {}
+    if _has_attn(cfg):
+        shape = (cfg.num_layers, num_blocks + 1, block_size,
+                 cfg.num_kv_heads, cfg.resolved_head_dim)
+        cache["kp"] = torch.zeros(shape, dtype=_dtype(cfg), device=dev)
+        cache["vp"] = torch.zeros(shape, dtype=_dtype(cfg), device=dev)
+    cache.update(_ssm_state(cfg, n_lanes, dev))
+    return cache
 
 
 def _slot_positions(table, bs: int):
@@ -436,19 +552,25 @@ def decode_step_paged(params: DecoderLM, cache, token, pos, cfg: ModelConfig,
                           _tensor(tables, dev))
     active = _tensor(active, dev, torch.bool)
     B, bs = token.shape[0], block_size
-    nb = tables.shape[1]
-    scratch = cache["kp"].shape[1] - 1
-    blk = torch.clamp(pos // bs, 0, nb - 1)
-    off = pos % bs
-    phys = tables.gather(1, blk[:, None])[:, 0]
-    ok = active & (phys >= 0)
-    phys_w = torch.where(ok, phys, scratch)
-    tab_c = torch.where(tables >= 0, tables, scratch)
-    kv_pos = _slot_positions(tables, bs)
-    Hk, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    if _has_attn(cfg):
+        nb = tables.shape[1]
+        scratch = cache["kp"].shape[1] - 1
+        blk = torch.clamp(pos // bs, 0, nb - 1)
+        off = pos % bs
+        phys = tables.gather(1, blk[:, None])[:, 0]
+        ok = active & (phys >= 0)
+        phys_w = torch.where(ok, phys, scratch)
+        tab_c = torch.where(tables >= 0, tables, scratch)
+        kv_pos = _slot_positions(tables, bs)
+        Hk, hd = cfg.num_kv_heads, cfg.resolved_head_dim
 
     x = _embed(params, token, cfg)[:, None, :]
     for i, (layer, g) in enumerate(zip(params.layers, layer_is_global(cfg))):
+        if cfg.arch_type == "ssm":
+            h = L.rms_norm(x, layer.norm, cfg.rms_eps)
+            x = x + _mamba_decode_into(layer, h, cfg, cache["conv"][i],
+                                       cache["ssm"][i], active)
+            continue
         h = L.rms_norm(x, layer.attn_norm, cfg.rms_eps)
         k_new, v_new = L.project_kv_one(layer.attn, h, cfg, pos)
         kp, vp = cache["kp"][i], cache["vp"][i]
@@ -460,6 +582,9 @@ def decode_step_paged(params: DecoderLM, cache, token, pos, cfg: ModelConfig,
         a = L.decode_attention(layer.attn, h, cfg, k_cache, v_cache, pos,
                                window=_decode_window(cfg, g),
                                kv_pos_of_slot=kv_pos)
+        if cfg.hybrid:
+            a = 0.5 * (a + _mamba_decode_into(layer, h, cfg, cache["conv"][i],
+                                              cache["ssm"][i], active))
         x = _mlp(layer, x + a, cfg)
     return _head(params, x[:, 0], cfg), cache
 
@@ -473,29 +598,43 @@ def prefill_chunk_paged(params: DecoderLM, cache, tokens, pos0: int,
     tokens : (1, Sc) chunk covering positions [pos0, pos0 + Sc); the
         blocks spanning that range must already be in ``table_row``
         ((nb_max,), -1 = unallocated).
-    lane : the lane whose per-lane state carries across chunks; dense
-        decoders have none, so it is unused here.
+    lane : the lane whose Mamba state (conv, ssm) carries across
+        chunks; dense decoders have none.
     Attention sees every earlier position through the gathered cache,
+    and the Mamba blocks continue the lane's carried state with the same
+    f32 recurrence as one-shot prefill (``layers.mamba_forward_chunk``),
     so chunked prefill equals one-shot prefill.  Returns (last-position
     logits (1, V), cache).
     """
     dev = params.device
     tokens, table_row = _tensor(tokens, dev), _tensor(table_row, dev)
     B, Sc = tokens.shape
-    bs = block_size
-    nb = table_row.shape[0]
-    scratch = cache["kp"].shape[1] - 1
     positions = int(pos0) + torch.arange(Sc, device=dev)
-    phys = table_row[torch.clamp(positions // bs, 0, nb - 1)]
-    phys_w = torch.where(phys >= 0, phys, scratch)
-    off = positions % bs
-    tab_c = torch.where(table_row >= 0, table_row, scratch)
-    kv_pos = _slot_positions(table_row, bs)[None]          # (1, nb*bs)
-    qpos = positions[None]                                 # (1, Sc)
-    Hk, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    if _has_attn(cfg):
+        bs = block_size
+        nb = table_row.shape[0]
+        scratch = cache["kp"].shape[1] - 1
+        phys = table_row[torch.clamp(positions // bs, 0, nb - 1)]
+        phys_w = torch.where(phys >= 0, phys, scratch)
+        off = positions % bs
+        tab_c = torch.where(table_row >= 0, table_row, scratch)
+        kv_pos = _slot_positions(table_row, bs)[None]      # (1, nb*bs)
+        qpos = positions[None]                             # (1, Sc)
+        Hk, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+
+    def mamba(i, layer, h):
+        conv, ssm = cache["conv"][i], cache["ssm"][i]
+        y, st = L.mamba_forward_chunk(layer.mamba, h, cfg, conv[lane][None],
+                                      ssm[lane][None])
+        conv[lane] = st["conv"][0]
+        ssm[lane] = st["ssm"][0]
+        return y
 
     x = _embed(params, tokens, cfg)
     for i, (layer, g) in enumerate(zip(params.layers, layer_is_global(cfg))):
+        if cfg.arch_type == "ssm":
+            x = x + mamba(i, layer, L.rms_norm(x, layer.norm, cfg.rms_eps))
+            continue
         h = L.rms_norm(x, layer.attn_norm, cfg.rms_eps)
         q, k, v = L.qkv_project(layer.attn, h, cfg, positions)
         kp, vp = cache["kp"][i], cache["vp"][i]
@@ -505,6 +644,8 @@ def prefill_chunk_paged(params: DecoderLM, cache, tokens, pos0: int,
         v_cache = vp[tab_c].reshape(1, nb * bs, Hk, hd)
         a = L.gathered_attention(q, k_cache, v_cache, qpos, kv_pos,
                                  window=_decode_window(cfg, g))
-        x = x + a.reshape(B, Sc, cfg.q_dim) @ layer.attn["o"]
-        x = _mlp(layer, x, cfg)
+        a = a.reshape(B, Sc, cfg.q_dim) @ layer.attn["o"]
+        if cfg.hybrid:
+            a = 0.5 * (a + mamba(i, layer, h))
+        x = _mlp(layer, x + a, cfg)
     return _head(params, x[:, -1], cfg), cache

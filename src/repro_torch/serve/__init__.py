@@ -14,9 +14,10 @@ Two tiers, as in the JAX package:
 Where the port differs from the JAX package, on purpose:
 
 * Prefill runs with ``use_kernels=True``, so on the card attention goes
-  through the hand-written flash kernel.  The JAX serving entry points
-  leave ``use_kernels`` off and run ``sdpa``; both compute the same
-  function.
+  through the hand-written flash kernel and the Mamba scan (SSM and
+  hybrid models) through the hand-written selective-scan kernel.  The
+  JAX serving entry points leave ``use_kernels`` off and run ``sdpa``
+  and the sequential scan; both compute the same function.
 * Sampling streams.  JAX's ``fold_in`` bits cannot be matched.  Every
   sampled token draws from its own counter-based ``torch.Generator`` on
   the logits' device (Philox on the card), seeded from

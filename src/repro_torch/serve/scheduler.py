@@ -31,10 +31,14 @@ Where the port differs from the JAX package: sampling uses the
 counter-based ``torch.Generator`` streams of ``repro_torch.serve``
 (seeded from (seed, rid, n_generated)), so sampled output is
 independent of scheduling and preemption; the dense arm's prefill runs
-with ``use_kernels=True`` (the flash kernel on the card); cache writes
-(the dense slot rows, the paged scatters) are in place; every tick runs
-under ``torch.inference_mode()``; a request that does not fit raises
-``ValueError`` (JAX asserts).  Dense decoders only.
+with ``use_kernels=True`` (the flash and scan kernels on the card);
+cache writes (the dense slot rows, the paged scatters, the SSM lane
+state) are in place; every tick runs under ``torch.inference_mode()``;
+a request that does not fit raises ``ValueError`` (JAX asserts).  Both
+batchers serve every family ``models`` runs: dense, SSM and hybrid.  An
+SSM request's prompt still claims paged blocks in ``ContinuousBatcher``
+(the host accounting is the JAX package's), though only attention
+writes them.
 """
 from __future__ import annotations
 
@@ -293,6 +297,15 @@ class ContinuousBatcher(_BatcherBase):
         return worked
 
     # --------------------------------------------------------- internals
+    def _zero_lane_state(self, lane: int) -> None:
+        """A new occupant starts from a zero Mamba state: the carried
+        (conv, ssm) rows of the previous one must not leak into its
+        chunked prefill.  Attention blocks need no reset: slots beyond a
+        lane's write position are masked."""
+        if "conv" in self.cache:
+            self.cache["conv"][:, lane] = 0
+            self.cache["ssm"][:, lane] = 0
+
     def _admit_and_prefill(self) -> bool:
         """FIFO head-of-line admission + at most one prefill chunk per
         lane occupant.  Lanes freed by a request finishing AT prefill
@@ -317,6 +330,7 @@ class ContinuousBatcher(_BatcherBase):
                     break                     # head-of-line: wait, not skip
                 self.queue.popleft()
                 self._occupy(lane, req)
+                self._zero_lane_state(lane)
                 self._seq[lane] = seq
                 self._filled[lane] = 0
                 self._resume_tok[lane] = (req.generated[-1]

@@ -108,6 +108,8 @@ GPU_CASES = [
     (4, 512, 16, 4, 64, None, True, "bfloat16"),
     (4, 512, 16, 4, 64, None, True, "float32"),
     (1, 2048, 16, 4, 64, None, True, "bfloat16"),
+    (2, 1536, 25, 5, 64, 1024, True, "bfloat16"),
+    (2, 1536, 25, 5, 64, None, True, "bfloat16"),
     (2, 200, 4, 2, 64, None, True, "float32"),
     (2, 256, 4, 1, 64, 100, True, "float32"),
     (1, 384, 6, 3, 128, 64, True, "float32"),

@@ -51,6 +51,8 @@ def test_no_file_imports_jax_or_repro():
 def test_importing_every_module_loads_no_jax():
     names = list(_module_names())
     for name in ("repro_torch.kernels.flash_attention.ops",
+                 "repro_torch.kernels.mamba_scan.ops",
+                 "repro_torch.kernels.mamba_scan.kernel",
                  "repro_torch.core.adloco",
                  "repro_torch.kernels.gradstats.ops",
                  "repro_torch.launch.train"):
@@ -74,6 +76,11 @@ def test_entry_points_default_to_cuda_and_never_fall_back(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         models.init_paged_cache(cfg, 2, 4, 4)
     assert models.init_params(cfg, device="cpu").device.type == "cpu"
+    ssm = reduced(get_config("falcon-mamba-7b"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        models.init_params(ssm)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        models.init_paged_cache(ssm, 2, 4, 4)
     # training: the loop, the data streams and the launcher
     params = lm.param_dict(models.init_params(cfg, device="cpu"))
     acfg = AdLoCoConfig(num_init_trainers=1, nodes_per_gpu=1,
