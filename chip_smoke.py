@@ -8,7 +8,8 @@ any failure raises and exits non-zero:
 
   1. environment: card, power limit, torch; build every kernel from the
      three sources in the checkout (one nvcc per source, all started
-     together, sm_90a) and print ptxas' report.
+     together, sm_90a) and print ptxas' report; the flash library's SASS
+     must hold HGMMA (wgmma) instructions.
   2. each kernel against its plain version on the card, at the shapes
      the main paths give it and at edge cases, with stated tolerances;
      kernel / plain / library times and the card's bound at the
@@ -16,24 +17,30 @@ any failure raises and exits non-zero:
      hymba's with window 1024 and without), at the training
      stats shape (8, 304,636,928) (gradstats, with a bit-identical
      repeat) and at falcon-mamba-7b's and hymba-1.5b's prefill shapes
-     (the selective scan, with a bit-identical repeat).
+     (the selective scan, with a bit-identical repeat, at every lane
+     count it has).  Each flash row names the path that ran: ``tc``
+     (bf16, hd % 16 == 0: wgmma) or ``fma`` (f32 and other bf16 head
+     dims).
   3. the main path: ``serve.generate`` on microllama-300m at full width
      in bf16 (seeded random weights), 4 prompts of 512 tokens, 32 greedy
-     tokens; the flash kernel must launch once per layer.  Prefill and
+     tokens; the flash kernel must launch once per layer, every launch on
+     the tensor-core path.  Prefill and
      decode times are ``generate``'s own (CUDA events).  Then the same
      call sampling at temperature 1, twice: the tokens must repeat.
   4. the server: ``DenseBatcher`` and ``ContinuousBatcher`` at full
      width in f32 on one bursty trace; every request answered, no block
-     leak, greedy tokens equal across both arms and ``generate``.
+     leak, greedy tokens equal across both arms and ``generate``; every
+     flash launch on the FMA path.
   4b. the SSM and hybrid main paths: ``serve.generate`` on
      falcon-mamba-7b at full width in bf16 (4 prompts of 512 tokens, 32
      greedy tokens; the scan kernel must launch 64 times per prefill,
      flash 0; kernel-vs-plain prefill logits within 5% of their largest
      magnitude) and on hymba-1.5b at full width in bf16 (2 prompts of
      1536 tokens, past the 1024-token window, 16 greedy tokens; flash
-     and the scan 32 times each, and each kernel alone against the
-     plain prefill); hymba-1.5b's prefill in f32, both kernels and each
-     alone, within 1e-4 of the logits' largest magnitude; then
+     (tensor-core path) and the scan 32 times each, and each kernel alone
+     against the plain prefill); hymba-1.5b's prefill in f32, both
+     kernels and each alone, within 1e-4 of the logits' largest
+     magnitude, flash on the FMA path; then
      falcon-mamba-7b in f32 through both batchers on one bursty trace,
      as in phase 4.
 
@@ -56,11 +63,20 @@ repository around it) it exits non-zero and prints no result.
 
 TF32 is switched off for matmuls and cuDNN, so every f32 product runs in
 full f32 and f32 comparisons measure the kernels, not TF32 rounding.
+
+Times of the flash and scan kernels, their plain versions and library
+calls are device times (``device_ms``: CUDA events around one call,
+queued behind a spin kernel so that the host's launch path falls
+outside them); their rows also give ``*_call_ms``, back-to-back calls
+timed by CUDA events, which the host's time per call sets once a kernel
+is shorter than it.  Gradstats' times are CUDA-event
+times (its kernels take milliseconds).
 """
 from __future__ import annotations
 
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -124,6 +140,59 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+_sleep_cycles_per_ms = None
+
+
+def sleep_cycles_per_ms() -> float:
+    """Clock cycles per ms of ``torch.cuda._sleep``'s spin kernel,
+    timed once by CUDA events."""
+    global _sleep_cycles_per_ms
+    if _sleep_cycles_per_ms is None:
+        cycles = 1 << 24
+        torch.cuda._sleep(cycles)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(cycles)
+        end.record()
+        end.synchronize()
+        _sleep_cycles_per_ms = cycles / start.elapsed_time(end)
+    return _sleep_cycles_per_ms
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device time of one call of ``fn``: the median over ``iters``
+    calls of the CUDA events recorded just before and just after one
+    call.  Before each call a spin kernel holds the stream for twice
+    the host's time per call plus 50 us, so the host has queued the
+    events and the call's kernels before the card reaches them, and the
+    interval holds the call's device work, not its launch path (which
+    back-to-back ``cuda_ms`` includes once a kernel is shorter than
+    it).  It needs no profiler."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    cycles = int((2 * host_ms + 0.05) * sleep_cycles_per_ms())
+    pairs = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    ms = statistics.median(s.elapsed_time(e) for s, e in pairs)
+    if not ms > 0:
+        raise AssertionError(f"no device time measured: {ms}")
+    return ms
+
+
 def visible_pairs(S: int, causal: bool, window: int) -> int:
     """(query, key) pairs the masks leave visible: the work this call
     needs."""
@@ -160,13 +229,29 @@ def phase_env():
         built = dict(zip(KERNEL_SOURCES,
                          pool.map(_build.build, KERNEL_SOURCES)))
     wall = time.perf_counter() - t0
+    hgmma = None
     for name, b in built.items():
         ptxas = [line.strip() for line in b.log.splitlines()
                  if "registers" in line or "spill" in line]
+        extra = {}
+        if name == "flash_attention":
+            hgmma = extra["hgmma_in_sass"] = sass_count(b.path, "HGMMA")
         emit("build", kernel=name, source=KERNEL_SOURCES[name],
              nvcc_seconds=b.seconds, all_builds_and_loads_seconds=wall,
-             library=str(b.path.relative_to(ROOT)), ptxas=ptxas)
-    return smi
+             library=str(b.path.relative_to(ROOT)), ptxas=ptxas, **extra)
+    if not hgmma:
+        raise AssertionError("the flash library's SASS holds no HGMMA: the "
+                             "bf16 path does not reach the tensor cores")
+    return smi, hgmma
+
+
+def sass_count(lib: Path, opcode: str) -> int:
+    """Lines of ``cuobjdump -sass lib`` that hold ``opcode``."""
+    from repro_torch.kernels._build import nvcc_path
+    cuobjdump = Path(nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], check=True,
+                          capture_output=True, text=True).stdout
+    return sum(opcode in line for line in sass.splitlines())
 
 
 def phase_kernels():
@@ -174,7 +259,7 @@ def phase_kernels():
     and hymba-1.5b prefill shapes.  Returns the timed rows, MicroLlama's
     B=4 first."""
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention import kernel, ops
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
     bf16, f32 = torch.bfloat16, torch.float32
@@ -190,6 +275,17 @@ def phase_kernels():
         (1, 96, 4, 4, 80, None, True, f32, False),
         (1, 128, 8, 8, 32, None, True, f32, False),    # hd <= 32
         (1, 192, 4, 2, 64, None, False, f32, False),   # padded bidirectional
+        # bf16 on the tensor-core path: hd 128, 80 and 32, ragged S, a
+        # window smaller than a tile, bidirectional at a padded S, every
+        # row fully masked (window 0: the kernel writes 0); hd 40 on FMA
+        (1, 384, 6, 3, 128, 64, True, bf16, False),
+        (1, 96, 4, 4, 80, None, True, bf16, False),
+        (1, 128, 8, 8, 32, None, True, bf16, False),
+        (2, 200, 4, 2, 64, None, True, bf16, False),
+        (2, 256, 4, 1, 64, 17, True, bf16, False),
+        (1, 192, 4, 2, 64, None, False, bf16, False),
+        (1, 130, 4, 2, 128, 0, True, bf16, False),
+        (1, 96, 4, 2, 40, None, True, bf16, False),
     ]
     rows = []
     for B, S, H, Hk, hd, window, causal, dt, timed in cases:
@@ -197,15 +293,22 @@ def phase_kernels():
         q, k, v = (torch.randn((B, S, h, hd), generator=gen, device="cuda")
                    .to(dt) for h in (H, Hk, Hk))
         w = ops.normalize_window(window)
+        before = ops.tc_launches, ops.fma_launches
         out = ops.flash_attention(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
+        ran = {"tc": ops.tc_launches - before[0],
+               "fma": ops.fma_launches - before[1]}
+        path = kernel.choose_path(dt, hd)
         ref = flash_attention_ref(q, k, v, causal=causal, window=w)
+        if w <= 0:   # no visible key: the kernel writes 0 by contract
+            ref = torch.zeros_like(ref)
         err = (out.float() - ref.float()).abs().max().item()
         ok = torch.allclose(out.float(), ref.float(), rtol=TOL[dt],
-                            atol=TOL[dt])
+                            atol=TOL[dt]) and ran[path] == 1 \
+            and sum(ran.values()) == 1
         row = dict(shape=[B, S, H, Hk, hd], window=window, causal=causal,
-                   dtype=str(dt).replace("torch.", ""), max_abs_err=err,
-                   tol=TOL[dt], ok=ok)
+                   dtype=str(dt).replace("torch.", ""), path=path,
+                   launches_by_path=ran, max_abs_err=err, tol=TOL[dt], ok=ok)
         if timed:
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
             # the library call computes the same function: a window
@@ -221,14 +324,20 @@ def phase_kernels():
                     qt, kt, vt, attn_mask=mask,
                     is_causal=causal and mask is None, enable_gqa=True)
 
+            def call():
+                return ops.flash_attention(q, k, v, causal=causal,
+                                           window=window)
+
             lib = library()
             bound_ms, bound_by, nbytes, flops = flash_bound(q, k, v, causal, w)
+            # *_ms: device time per call; *_call_ms: back-to-back calls
+            # timed by CUDA events, which host time per call can set
             row.update(
-                kernel_ms=cuda_ms(lambda: ops.flash_attention(
-                    q, k, v, causal=causal, window=window)),
-                plain_ms=cuda_ms(lambda: flash_attention_ref(
+                kernel_ms=device_ms(call), kernel_call_ms=cuda_ms(call),
+                plain_ms=device_ms(lambda: flash_attention_ref(
                     q, k, v, causal=causal, window=w), iters=10),
-                library_ms=cuda_ms(library),
+                library_ms=device_ms(library),
+                library_call_ms=cuda_ms(library),
                 library_max_abs_err=(lib.transpose(1, 2).float()
                                      - out.float()).abs().max().item(),
                 bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
@@ -376,12 +485,19 @@ def scan_inputs(B, S, di, n, dt_, seed):
     return u, dt, A_log, BC[..., r:r + n], BC[..., r + n:]
 
 
+def scan_grid(B: int, di: int, lanes: int, sms: int) -> dict:
+    """The scan kernel's grid: blocks of 256 threads, 256 / lanes
+    channels each."""
+    blocks = -(-di // (256 // lanes)) * B
+    return dict(grid_blocks=blocks, warps_per_sm=blocks * 8 / sms)
+
+
 def phase_scan_kernels():
     """The selective-scan kernel against its plain version (the chunked
     associative scan), with a bit-identical repeat; times at the
-    falcon-mamba-7b and hymba-1.5b prefill shapes.  Returns the summary
-    at falcon-mamba-7b's."""
-    from repro_torch.kernels.mamba_scan import ops
+    falcon-mamba-7b and hymba-1.5b prefill shapes.  Returns the timed
+    rows, falcon-mamba-7b's first."""
+    from repro_torch.kernels.mamba_scan import kernel, ops
     from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
     from repro_torch.models.layers import ssm_scan_seq
 
@@ -397,8 +513,14 @@ def phase_scan_kernels():
         (1, 128, 128, 16, bf16, False),
         (1, 1, 96, 8, f32, False),          # S = 1
         (4, 512, 8192, 16, f32, False),
+        # one case for each lane count the dispatch picks (kernel.py's
+        # choose_lanes): falcon's and hymba's shapes take 4, (1, 128,
+        # 128, 16) above 16
+        (2, 256, 1024, 16, bf16, False),    # 8 lanes
+        (1, 64, 32768, 8, f32, False),      # n <= 8: 4 lanes
+        (1, 200, 96, 8, bf16, False),       # n <= 8: 8 lanes
     ]
-    summary = None
+    rows = []
     for B, S, di, n, dt_, timed_case in cases:
         x = scan_inputs(B, S, di, n, dt_, seed=S + di + n)
         y, h = ops.mamba_scan(*x)
@@ -411,38 +533,58 @@ def phase_scan_kernels():
         ok = repeat and all(torch.allclose(a.float(), b.float(),
                                            rtol=TOL[dt_], atol=TOL[dt_])
                             for a, b in ((y, yr), (h, hr)))
-        blocks = -(-di // 128) * B
+        lanes = kernel.choose_lanes(B, di, n)
         row = dict(shape=[B, S, di, n], dtype=str(dt_).replace("torch.", ""),
                    max_abs_err=max(err_y, err_h), y_max_abs_err=err_y,
                    h_max_abs_err=err_h, repeat_bit_identical=repeat,
-                   tol=TOL[dt_], ok=ok, grid_blocks=blocks, sms=sms,
-                   warps_per_sm=blocks * 4 / sms)
+                   tol=TOL[dt_], ok=ok, lanes=lanes, sms=sms,
+                   **scan_grid(B, di, lanes, sms))
         if timed_case:
+            # every lane count the kernel has, held to the same
+            # tolerance and timed (direct binding calls: not counted)
+            neg_A = -torch.exp(x[2].float())
+            by_lanes = {}
+            for lanes_ in kernel.LANES:
+                yl, hl = kernel.mamba_scan_fwd(x[0], x[1], neg_A, x[3], x[4],
+                                               lanes=lanes_)
+                torch.cuda.synchronize()
+                err_l = max((yl.float() - yr.float()).abs().max().item(),
+                            (hl.float() - hr.float()).abs().max().item())
+                ok = ok and all(torch.allclose(a.float(), b.float(),
+                                               rtol=TOL[dt_], atol=TOL[dt_])
+                                for a, b in ((yl, yr), (hl, hr)))
+                by_lanes[lanes_] = dict(
+                    max_abs_err=err_l, kernel_ms=device_ms(
+                        lambda: kernel.mamba_scan_fwd(
+                            x[0], x[1], neg_A, x[3], x[4], lanes=lanes_)),
+                    **scan_grid(B, di, lanes_, sms))
+                del yl, hl
+            row.update(by_lanes=by_lanes, ok=ok)
             u_elem = x[0].element_size()
             (bound_ms, bound_by, nbytes, flops, exps, bytes_ms, flops_ms,
              exps_ms) = scan_bound(B, S, di, n, u_elem, sms, clock_hz)
-            kernel_ms = cuda_ms(lambda: ops.mamba_scan(*x), iters=20)
+            kernel_ms = device_ms(lambda: ops.mamba_scan(*x))
             row.update(
                 kernel_ms=kernel_ms,
-                plain_ms=cuda_ms(lambda: mamba_scan_ref(*x), iters=3,
-                                 warmup=1),
-                plain_seq_ms=cuda_ms(lambda: ssm_scan_seq(*x), iters=2,
-                                     warmup=1),
+                kernel_call_ms=cuda_ms(lambda: ops.mamba_scan(*x), iters=20),
+                plain_ms=device_ms(lambda: mamba_scan_ref(*x), iters=3,
+                                   warmup=1),
+                plain_seq_ms=device_ms(lambda: ssm_scan_seq(*x), iters=2,
+                                       warmup=1),
                 library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
                 bytes=nbytes, flops=flops, exps=exps, elem_bytes=u_elem,
                 bytes_bound_ms=bytes_ms, flops_bound_ms=flops_ms,
                 exps_bound_ms=exps_ms, sm_clock_hz=clock_hz,
                 achieved_bytes_per_s=nbytes / (kernel_ms * 1e-3),
                 share_of_bound=bound_ms / kernel_ms)
-            if summary is None:
-                summary = row
+            rows.append(row)
         emit("kernel_check", kernel="mamba_scan", **row)
         del x, y, h, y2, h2, yr, hr
         if not ok:
             raise AssertionError(f"scan kernel disagrees with its plain "
                                  f"version: {row}")
     torch.cuda.empty_cache()
-    return summary
+    return rows
 
 
 def launch_counts():
@@ -451,6 +593,8 @@ def launch_counts():
     from repro_torch.kernels.gradstats import ops as gs
     from repro_torch.kernels.mamba_scan import ops as scan
     return {"flash_attention": flash.launches,
+            "flash_attention_tc": flash.tc_launches,
+            "flash_attention_fma": flash.fma_launches,
             "mamba_scan": scan.scan_launches,
             "gradstats_colsum": gs.colsum_launches,
             "gradstats_moments": gs.moments_launches}
@@ -460,7 +604,8 @@ def reset_counts():
     from repro_torch.kernels.flash_attention import ops as flash
     from repro_torch.kernels.gradstats import ops as gs
     from repro_torch.kernels.mamba_scan import ops as scan
-    flash.launches = scan.scan_launches = 0
+    flash.launches = flash.tc_launches = flash.fma_launches = 0
+    scan.scan_launches = 0
     gs.colsum_launches = gs.moments_launches = 0
 
 
@@ -577,7 +722,8 @@ def generate_main_path(arch: str, B: int, S: int, new: int, expect: dict):
     # kernels keep f32 and sum in another order; the layers' bf16
     # residuals carry that to the logits
     row, faults = prefill_parity(params, cfg, prompts, S + new,
-                                 [k for k, n in expect.items() if n], 5e-2)
+                                 [k for k in ("flash_attention", "mamba_scan")
+                                  if expect[k]], 5e-2)
     emit("generate", arch=cfg.name, dtype=cfg.dtype, layers=cfg.num_layers,
          d_model=cfg.d_model, params=cfg.param_count(), batch=B, prompt=S,
          new_tokens=new, setup_s=setup_s, launches=launches,
@@ -600,6 +746,8 @@ def phase_generate():
     B, S, new = 4, 512, 32
     launches, (cfg, params, prompts, res) = generate_main_path(
         "microllama-300m", B, S, new, {"flash_attention": 12,
+                                       "flash_attention_tc": 12,
+                                       "flash_attention_fma": 0,
                                        "mamba_scan": 0})
     # temperature sampling: noise drawn on the card from per-(seed, row,
     # step) generators, so the same call gives the same tokens
@@ -610,8 +758,9 @@ def phase_generate():
             t0 = time.perf_counter()
             r = serve.generate(params, cfg, prompts, max_new_tokens=new,
                                temperature=1.0, seed=0)
+            counts = launch_counts()
             runs.append((r, time.perf_counter() - t0,
-                         launch_counts()["flash_attention"]))
+                         counts["flash_attention_tc"]))
             check_ids(r, cfg, B, new)
     same = runs[0][0].tokens == runs[1][0].tokens
     emit("generate_sampled", temperature=1.0, seed=0, reproducible=same,
@@ -626,18 +775,22 @@ def phase_generate():
                              "its seed")
     if any(n != cfg.num_layers for _, _, n in runs):
         raise AssertionError("sampled generate's prefill did not launch the "
-                             "flash kernel once per layer")
+                             "tensor-core flash kernel once per layer")
     return launches
 
 
 def phase_generate_ssm():
     return generate_main_path("falcon-mamba-7b", 4, 512, 32,
-                              {"mamba_scan": 64, "flash_attention": 0})[0]
+                              {"mamba_scan": 64, "flash_attention": 0,
+                               "flash_attention_tc": 0,
+                               "flash_attention_fma": 0})[0]
 
 
 def phase_generate_hybrid():
     return generate_main_path("hymba-1.5b", 2, 1536, 16,
-                              {"mamba_scan": 32, "flash_attention": 32})[0]
+                              {"mamba_scan": 32, "flash_attention": 32,
+                               "flash_attention_tc": 32,
+                               "flash_attention_fma": 0})[0]
 
 
 @torch.inference_mode()
@@ -656,9 +809,14 @@ def phase_hybrid_f32():
     gen = torch.Generator(device="cuda").manual_seed(1)
     prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
                             device="cuda")
+    reset_counts()
     row, faults = prefill_parity(params, cfg, prompts, S,
                                  ["flash_attention", "mamba_scan"], 1e-4)
-    emit("prefill_f32", arch=cfg.name, batch=B, prompt=S, **row)
+    launches = launch_counts()
+    emit("prefill_f32", arch=cfg.name, batch=B, prompt=S, launches=launches,
+         **row)
+    if launches["flash_attention_tc"] or not launches["flash_attention_fma"]:
+        faults.append(f"f32 flash must run the FMA path only: {launches}")
     if faults:
         raise AssertionError(f"{cfg.name} f32: {faults}")
 
@@ -710,6 +868,11 @@ def phase_server(arch: str = "microllama-300m",
         raise AssertionError("paged arm leaked KV blocks")
     if launches["dense"][kernel] <= 0:
         raise AssertionError("the dense arm's prefill never ran the kernel")
+    if launches["dense"]["flash_attention_tc"] or (
+            launches["dense"]["flash_attention_fma"]
+            != launches["dense"]["flash_attention"]):
+        raise AssertionError(f"f32 flash must run the FMA path only: "
+                             f"{launches['dense']}")
 
     prompts = {a.rid: r.tokens for a, (_, r) in
                zip(spec, traffic.materialize(spec, cfg.vocab_size))}
@@ -869,11 +1032,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    smi = timed("env", phase_env)
+    smi, hgmma = timed("env", phase_env)
     flash_rows = timed("kernels_flash", phase_kernels)
     flash = flash_rows[0]
     gs = timed("kernels_gradstats", phase_gradstats_kernels)
-    scan = timed("kernels_scan", phase_scan_kernels)
+    scan, scan_hybrid = timed("kernels_scan", phase_scan_kernels)
     launches = timed("generate", phase_generate)
     timed("server", phase_server)
     ssm_launches = timed("generate_ssm", phase_generate_ssm)
@@ -884,7 +1047,10 @@ def main() -> int:
     kernels = [{
         "name": "flash_attention", "route": "cuda", "source": FLASH_SRC,
         "replaces": FLASH_TPU, "launches": launches["flash_attention"],
+        "launches_tc": launches["flash_attention_tc"],
         "launches_hybrid": hybrid_launches["flash_attention"],
+        "launches_hybrid_tc": hybrid_launches["flash_attention_tc"],
+        "path": flash["path"], "hgmma_in_sass": hgmma,
         "hybrid_ms": {("global" if r["window"] is None
                        else f"window_{r['window']}"): r["kernel_ms"]
                       for r in flash_rows if r["shape"][2] == 25},
@@ -915,7 +1081,11 @@ def main() -> int:
         "max_abs_err": scan["max_abs_err"], "ms": scan["kernel_ms"],
         "plain_ms": scan["plain_ms"], "bound_ms": scan["bound_ms"],
         "bound_by": scan["bound_by"], "library_ms": None,
-        "shape": scan["shape"], "dtype": scan["dtype"]}]
+        "shape": scan["shape"], "dtype": scan["dtype"],
+        "lanes": scan["lanes"], "warps_per_sm": scan["warps_per_sm"],
+        "share_of_bound": scan["share_of_bound"],
+        "hybrid_ms": scan_hybrid["kernel_ms"],
+        "hybrid_lanes": scan_hybrid["lanes"]}]
     print(json.dumps({"kernels": kernels,
                       "seconds": time.perf_counter() - t0}), flush=True)
     print(smi, flush=True)

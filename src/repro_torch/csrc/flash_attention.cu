@@ -6,45 +6,90 @@
 // `flash_attention_padded`, wrapped by `ops.flash_attention`), and
 // computes the same function: blocked online-softmax attention with GQA
 // (kv head = h / (H / Hk)), a causal mask and a sliding-window mask
-// whose width is a runtime int, with m, l and acc in f32.  A row whose
-// keys are all masked writes 0.
+// whose width is a runtime int (a key is masked when kpos <= qpos -
+// window), with m, l and the accumulator in f32 and the output in q's
+// type.  A row whose keys are all masked writes 0.
 //
 // Differences from the TPU kernel, by design:
 //  * No padded copies of q/k/v.  The TPU wrapper zero-pads S to its
 //    128 block and the kernel masks padded keys only through the causal
 //    test, so bidirectional attention at a padded S is wrong there.
 //    Here every key at or beyond the true S is masked (`kpos < S`), and
-//    the ragged last query tile simply does not store its extra rows.
+//    rows of the ragged last query tile are not stored.
 //  * The TPU grid's sequential k axis becomes a loop inside the block.
 //
-// Design: one thread block per (batch, q head, 64-query tile), 256
-// threads, four threads per query row.  A thread holds a quarter of its
-// query row and of its f32 accumulator in registers (dims
-// 16*c + 4*lane + {0..3}), so the four partial dot products meet in two
-// warp shuffles.  K/V tiles of 32 keys of the mapped kv head are staged
-// in shared memory as f32 (bf16 inputs are widened on load); the online
-// softmax runs in f32 registers; tiles wholly beyond the causal limit or
-// wholly before the window are skipped.
+// What bounds it on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense), as
+// chip_smoke.py's flash_bound counts it (q, k, v read once, o written
+// once, 4 * hd FLOPs per visible (query, key) pair and head):
+//  * MicroLlama-300M prefill (B, S, H, Hk, hd) = (4, 512, 16, 4, 64),
+//    causal, bf16: 10.5 MB against 2.2 GFLOP, bytes-bound, 3.13 us;
+//  * hymba-1.5b prefill (2, 1536, 25, 5, 64), bf16, global layers:
+//    15.1 GFLOP, operations-bound, 15.3 us; its local layers (window
+//    1024): 13.4 GFLOP, 13.6 us.
+// Both products are matrix products, so the tensor cores set the bound
+// at the longer shapes, and f32 FMAs on the CUDA cores (67 TFLOP/s)
+// cannot come near it.
 //
-// What bounds it on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense):
-// at MicroLlama-300M's prefill (B=4, S=512, H=16, Hk=4, hd=64, causal,
-// bf16) the call moves about 10.5 MB of q/k/v/o against about 2.1 GFLOP
-// — bytes-bound (about 3.1 us against 2.2 us).  At B=1, S=2048 it is
-// about 8.6 GFLOP against the same 10.5 MB — operations-bound (about
-// 8.7 us).  This first version answers the bytes bound only: q is read
-// once, o written once, K/V tiles are read once per query tile (the
-// re-reads hit L2), and no intermediate (scores, probabilities) ever
-// reaches device memory.  It does not answer the operations bound: the
-// products run as f32 FMAs on the CUDA cores, not on the tensor cores,
-// so the kernel stays well above both bounds.  wgmma and TMA are the
-// next steps (see PERF.md for measured times).
+// Two kernels:
+//
+// 1. bf16 with hd % 16 == 0 and hd <= 128 (every head dim of the
+//    repository's configs but gemma3-4b's 256): both products on the
+//    tensor cores with `wgmma`.  One CTA of one warpgroup (128 threads)
+//    per (batch, q head, 64-query tile).
+//    * Loads: TMA, issued by one elected thread, into 128-byte-swizzled
+//      shared memory, the layout the wgmma descriptors read.  The tensor
+//      maps are 4-d over (hd, heads, S, B) with boxes of (64, 1, 64, 1),
+//      so the ragged last tile of S and the dims of hd past a multiple
+//      of 64 are zero-filled by the hardware, never read from the next
+//      row.  The Q tile (64 x hd) is loaded once; K and V tiles of 64
+//      keys of the mapped kv head stream through two stages, each with
+//      an mbarrier that the copy completes.  A stage is refilled (tile
+//      i + 2) once every warp's products on tile i have finished.
+//    * S = Q K^T: wgmma m64n64k16 from shared memory, K-major on both
+//      sides (K is stored (key, hd) with hd contiguous), f32
+//      accumulators in registers.
+//    * Masks (causal, window, kpos < S) are applied to the accumulator
+//      fragment only on tiles that straddle a boundary; tiles wholly
+//      past the causal limit or before the window are never loaded.
+//      The online softmax runs in f32 registers in base 2 (scores
+//      pre-scaled by log2(e) / sqrt(hd)); a row's max and sum meet over
+//      the four threads that hold it.
+//    * O += P V: P is rounded to bf16 in registers and fed as the A
+//      operand of wgmma m64n{64,128}k16 (the register form): the
+//      accumulator layout of the first product is the A-fragment layout
+//      of the second.  V, stored (key, hd) with hd contiguous, is
+//      MN-major for operand B and is read through the transpose bit.
+//    * Epilogue: divide by l, round to bf16, store rows < S.
+//    Within the warpgroup the two products and the softmax run one after
+//    another; the CTAs resident on an SM (four at hd 64) overlap each
+//    other's.  Drafts with two consumer warpgroups per CTA, three or four
+//    stages, or the next tile's S product issued before this tile's
+//    softmax were no faster on the H100: ptxas serialized the
+//    overlapped wgmmas (C7514/C7515).  See ROADMAP for the next step.
+//    The tensor maps are encoded on the host for each call through
+//    cuTensorMapEncodeTiled, found with the runtime's driver entry point
+//    query, so the library links nothing beyond the runtime.
+//
+// 2. Everything else the wrapper takes (f32, and bf16 with hd % 8 == 0
+//    but not % 16): the first port's kernel, both products as f32 FMAs
+//    on the CUDA cores.  One block of 256 threads per (batch, q head,
+//    64-query tile), four threads per query row (a quarter of its dims
+//    each, partial dot products met in two warp shuffles), K/V tiles of
+//    32 keys staged in shared memory as f32.  f32 stays off the tensor
+//    cores on purpose: TF32 keeps about three digits, and the f32
+//    serving paths are held to 1e-4 of their plain versions.
+//
+// See PERF.md for the measured times.
 
+#include <cuda.h>           // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
 
-namespace {
+namespace fma_path {
+
 
 constexpr int BQ = 64;                 // queries per block
 constexpr int BK = 32;                 // keys per shared-memory tile
@@ -219,11 +264,451 @@ int dispatch_hd(const void* q, const void* k, const void* v, void* o,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-}  // namespace
+}  // namespace fma_path
+
+namespace tc_path {
+
+constexpr int BQ = 64;          // query rows per CTA: one warpgroup
+constexpr int BK = 64;          // keys per K/V tile
+constexpr int STAGES = 2;       // K/V tiles in flight
+constexpr int THREADS = 128;    // one warpgroup
+constexpr int ROW_BYTES = 128;  // one swizzled row: 64 bf16 of hd
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+// Spin until the barrier's phase `parity` has completed.  A copy that
+// never lands (a bad tensor map) traps after about 2^26 tries instead of
+// hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  for (uint32_t tries = 0;; ++tries) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (tries == (1u << 26)) __trap();
+  }
+}
+
+// One box of a 4-d tensor map into shared memory; completes on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, the
+// leading and stride byte offsets, all in 16-byte units.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep the compiler from reading accumulators before wgmma_wait_all.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Accumulator constraints, eight registers at a time.
+#define ACC8(i)                                                         \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),           \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// D (64 x 64, f32) (+)= A (64 x 16, shared) * B (16 x 64, shared),
+// both operands K-major (no transpose); scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 64, f32) += A (64 x 16, bf16 in registers) * B (16 x 64,
+// shared, MN-major: the transpose bit is set).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 128, f32) += A (64 x 16, bf16 in registers) * B (16 x 128,
+// shared, MN-major: the transpose bit is set).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40),
+        ACC8(48), ACC8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef ACC8
+
+// K and V tile at keys k0.. of kv head hk into one stage (K at dst, V
+// after it), completing on `bar`; one thread issues it.
+template <int HDP>
+__device__ __forceinline__ void load_kv(const CUtensorMap* kmap,
+                                        const CUtensorMap* vmap, uint32_t bar,
+                                        uint32_t dst, int k0, int hk, int b) {
+  constexpr int KV_BYTES = BK * HDP * 2;
+  mbar_expect_tx(bar, 2 * KV_BYTES);
+#pragma unroll
+  for (int c = 0; c < HDP / 64; ++c) {
+    tma_load(dst + c * BK * ROW_BYTES, kmap, bar, 64 * c, hk, k0, b);
+    tma_load(dst + KV_BYTES + c * BK * ROW_BYTES, vmap, bar, 64 * c, hk, k0,
+             b);
+  }
+}
+
+// HDP: hd rounded up to 64 or 128 (the swizzled column blocks of a row).
+// Shared memory, 1024-byte aligned: Q (HDP/64 blocks of 64 rows x 128
+// bytes), then per stage K and V (HDP/64 blocks of BK rows x 128 bytes
+// each), then 1 + STAGES mbarriers (Q, then a stage's).
+template <int HDP>
+__global__ void __launch_bounds__(THREADS)
+flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
+                const __grid_constant__ CUtensorMap kmap,
+                const __grid_constant__ CUtensorMap vmap,
+                __nv_bfloat16* __restrict__ o, int S, int H, int Hk, int hd,
+                int causal, int window, float scale_log2) {
+  constexpr int NCB = HDP / 64;                  // column blocks per row
+  constexpr int Q_BYTES = BQ * HDP * 2;
+  constexpr int KV_BYTES = BK * HDP * 2;         // one K or one V tile
+  constexpr int NO = HDP / 2;                    // O accumulators / thread
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sq = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t skv = sq + Q_BYTES;             // stage s: K, then V
+  const uint32_t bars = skv + STAGES * 2 * KV_BYTES;
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int q0 = blockIdx.x * BQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = h / (H / Hk);
+
+  // key range this query tile can see, in whole tiles
+  const int k_end = causal ? min(S, q0 + BQ) : S;
+  int k_begin = 0;
+  const long long lo = (long long)q0 - (long long)window + 1;
+  if (lo > 0) k_begin = (int)(lo / BK) * BK;
+  const int ntiles = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i <= STAGES; ++i) mbar_init(bars + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bars, Q_BYTES);
+#pragma unroll
+    for (int c = 0; c < NCB; ++c)
+      tma_load(sq + c * BQ * ROW_BYTES, &qmap, bars, 64 * c, h, q0, b);
+    for (int i = 0; i < STAGES && i < ntiles; ++i)
+      load_kv<HDP>(&kmap, &vmap, bars + 8 * (1 + i), skv + i * 2 * KV_BYTES,
+                   k_begin + i * BK, hk, b);
+  }
+
+  // this thread's rows: r0 and r0 + 8 of the warp's 16
+  const int r0 = q0 + warp * 16 + lane / 4;
+  const int r1 = r0 + 8;
+  const int cq = 2 * (lane % 4);                 // its first column
+  float oacc[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) oacc[i] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+  mbar_wait(bars, 0);
+  for (int it = 0; it < ntiles; ++it) {
+    const int s = it % STAGES;
+    const int k0 = k_begin + it * BK;
+    const uint32_t sk = skv + s * 2 * KV_BYTES;
+    const uint32_t sv = sk + KV_BYTES;
+    mbar_wait(bars + 8 * (1 + s), (it / STAGES) & 1);
+
+    // S = Q K^T: HDP / 16 steps of k16 along hd
+    float sacc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sacc[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HDP / 16; ++kk) {
+      const uint32_t off = (kk % 4) * 32;     // 16 dims in the block
+      wgmma_ss_n64(
+          sacc, sw128_desc(sq + (kk / 4) * BQ * ROW_BYTES + off, 16, 1024),
+          sw128_desc(sk + (kk / 4) * BK * ROW_BYTES + off, 16, 1024),
+          kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sacc);
+
+    // masks, only where the tile straddles a boundary
+    const bool edge = k0 + BK > S || (causal && k0 + BK - 1 > q0) ||
+                      (long long)k0 <= (long long)q0 + BQ - 1 - window;
+    if (edge) {
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kpos = k0 + 8 * j + cq + e;
+          const bool in = kpos < S;
+          const bool ok0 = in &&
+                           (long long)kpos > (long long)r0 - window &&
+                           (!causal || kpos <= r0);
+          const bool ok1 = in &&
+                           (long long)kpos > (long long)r1 - window &&
+                           (!causal || kpos <= r1);
+          if (!ok0) sacc[4 * j + e] = -INFINITY;
+          if (!ok1) sacc[4 * j + 2 + e] = -INFINITY;
+        }
+      }
+    }
+
+    // online softmax in base 2; row max over the four threads of a row
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(sacc[4 * j], sacc[4 * j + 1]));
+      mx1 = fmaxf(mx1, fmaxf(sacc[4 * j + 2], sacc[4 * j + 3]));
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float mn0 = fmaxf(m0, mx0 * scale_log2);
+    const float mn1 = fmaxf(m1, mx1 * scale_log2);
+    // a row with no visible key yet keeps m = -inf, l = 0, O = 0
+    const float a0 = mn0 == -INFINITY ? 1.f : exp2f(m0 - mn0);
+    const float a1 = mn1 == -INFINITY ? 1.f : exp2f(m1 - mn1);
+    const float mu0 = mn0 == -INFINITY ? 0.f : mn0;
+    const float mu1 = mn1 == -INFINITY ? 0.f : mn1;
+    m0 = mn0;
+    m1 = mn1;
+    l0 *= a0;
+    l1 *= a1;
+#pragma unroll
+    for (int j = 0; j < NO / 4; ++j) {
+      oacc[4 * j] *= a0;
+      oacc[4 * j + 1] *= a0;
+      oacc[4 * j + 2] *= a1;
+      oacc[4 * j + 3] *= a1;
+    }
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {   // masked: exp2(-inf) = 0
+        const float p0 = exp2f(fmaf(sacc[4 * j + e], scale_log2, -mu0));
+        const float p1 =
+            exp2f(fmaf(sacc[4 * j + 2 + e], scale_log2, -mu1));
+        sacc[4 * j + e] = p0;
+        sacc[4 * j + 2 + e] = p1;
+        l0 += p0;
+        l1 += p1;
+      }
+    }
+    // P as the A operand: keys 16 kk .. 16 kk + 15 of the tile
+    uint32_t pa[BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      pa[kk][0] = pack_bf16(sacc[8 * kk], sacc[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(sacc[8 * kk + 2], sacc[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(sacc[8 * kk + 4], sacc[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(sacc[8 * kk + 6], sacc[8 * kk + 7]);
+    }
+
+    // O += P V: BK / 16 steps of k16 along the keys.  V's descriptor:
+    // the next 8 keys 1024 bytes on (SBO), the next 64 dims of hd one
+    // column block on (LBO).
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint64_t dv =
+          sw128_desc(sv + kk * 16 * ROW_BYTES, BK * ROW_BYTES, 1024);
+      if constexpr (HDP == 64)
+        wgmma_rs_n64(oacc, pa[kk], dv);
+      else
+        wgmma_rs_n128(oacc, pa[kk], dv);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(oacc);
+
+    __syncthreads();   // every warp's products have read stage s
+    if (tid == 0 && it + STAGES < ntiles)
+      load_kv<HDP>(&kmap, &vmap, bars + 8 * (1 + s), sk, k0 + STAGES * BK,
+                   hk, b);
+  }
+
+  // epilogue: the row sums meet over the four threads of a row
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;
+  const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
+  __nv_bfloat16* o0 = o + (((size_t)b * S + r0) * H + h) * hd;
+  __nv_bfloat16* o1 = o + (((size_t)b * S + r1) * H + h) * hd;
+#pragma unroll
+  for (int j = 0; j < NO / 4; ++j) {
+    const int col = 8 * j + cq;
+    if (col >= hd) continue;
+    if (r0 < S)
+      *reinterpret_cast<__nv_bfloat162*>(o0 + col) =
+          __floats2bfloat162_rn(oacc[4 * j] * inv0, oacc[4 * j + 1] * inv0);
+    if (r1 < S)
+      *reinterpret_cast<__nv_bfloat162*>(o1 + col) = __floats2bfloat162_rn(
+          oacc[4 * j + 2] * inv1, oacc[4 * j + 3] * inv1);
+  }
+}
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_fn() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t rc = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t rc = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (rc == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A 4-d map over a contiguous (B, S, heads, hd) bf16 tensor, innermost
+// first: (hd, heads, S, B), with a box of (64, 1, 64, 1), 128-byte
+// swizzle, zero fill outside the tensor.
+bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads,
+              int hd) {
+  EncodeTiledFn enc = encode_fn();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads,
+                              (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)hd * 2,
+                                 (cuuint64_t)heads * hd * 2,
+                                 (cuuint64_t)S * heads * hd * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)BK, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HDP>
+int launch(const void* q, const void* k, const void* v, void* o, int B,
+           int S, int H, int Hk, int hd, int causal, int window, float scale,
+           cudaStream_t stream) {
+  static_assert(BQ == BK, "one box shape serves the Q and the K/V maps");
+  CUtensorMap qm, km, vm;
+  if (!make_map(&qm, q, B, S, H, hd) || !make_map(&km, k, B, S, Hk, hd) ||
+      !make_map(&vm, v, B, S, Hk, hd))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem =
+      BQ * HDP * 2 + STAGES * 2 * BK * HDP * 2 + (1 + STAGES) * 8 + 1024;
+  cudaError_t rc = cudaFuncSetAttribute(
+      flash_tc_kernel<HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const dim3 grid((S + BQ - 1) / BQ, H, B);
+  flash_tc_kernel<HDP><<<grid, THREADS, smem, stream>>>(
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), S, H, Hk, hd, causal,
+      window, scale * 1.4426950408889634f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc_path
 
 // q (B,S,H,hd), k/v (B,S,Hk,hd), o (B,S,H,hd), all contiguous, one
-// dtype: 0 = float32, 1 = bfloat16.  Launches on `stream`, allocates
-// nothing, returns cudaGetLastError() of the launch.
+// dtype: 0 = float32, 1 = bfloat16.  bf16 with hd % 16 == 0 and
+// hd <= 128 runs the tensor-core kernel (16-byte aligned pointers);
+// every other input the FMA kernel (the same rule as
+// kernel.py's `choose_path`).  Launches on `stream`, allocates nothing
+// on the device, returns cudaGetLastError() of the launch.
 extern "C" int repro_flash_attention_fwd(const void* q, const void* k,
                                          const void* v, void* o, int B,
                                          int S, int H, int Hk, int hd,
@@ -232,13 +717,20 @@ extern "C" int repro_flash_attention_fwd(const void* q, const void* k,
                                          void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B <= 0 || S <= 0 || H <= 0 || Hk <= 0 || H % Hk != 0 || hd <= 0 ||
-      hd % 8 != 0)
+      hd % 8 != 0 || hd > 128)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 1 && hd % 16 == 0) {
+    if (hd <= 64)
+      return tc_path::launch<64>(q, k, v, o, B, S, H, Hk, hd, causal,
+                                 window, scale, st);
+    return tc_path::launch<128>(q, k, v, o, B, S, H, Hk, hd, causal, window,
+                                scale, st);
+  }
   if (dtype == 0)
-    return dispatch_hd<float>(q, k, v, o, B, S, H, Hk, hd, causal, window,
-                              scale, st);
+    return fma_path::dispatch_hd<float>(q, k, v, o, B, S, H, Hk, hd, causal,
+                                        window, scale, st);
   if (dtype == 1)
-    return dispatch_hd<__nv_bfloat16>(q, k, v, o, B, S, H, Hk, hd, causal,
-                                      window, scale, st);
+    return fma_path::dispatch_hd<__nv_bfloat16>(q, k, v, o, B, S, H, Hk, hd,
+                                                causal, window, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -5,6 +5,13 @@
 ``torch.empty`` and launches the kernel on PyTorch's current stream.  It
 takes CUDA tensors only and raises on anything the kernel does not
 take; the library is built at the first call (``kernels._build``).
+
+``choose_path`` says which of the library's two kernels an input takes,
+by dtype and head dim alone (the C entry point applies the same rule):
+``"tc"``, the tensor-core kernel (``wgmma`` fed by TMA), for bf16 with
+``hd % 16 == 0``; ``"fma"``, the f32-FMA kernel, for f32 and for bf16
+with ``hd % 8 == 0`` otherwise.  f32 never goes to the tensor cores:
+TF32 would keep about three digits.
 """
 from __future__ import annotations
 
@@ -31,8 +38,21 @@ def _entry():
     return _fn
 
 
-def check_inputs(q, k, v) -> None:
-    """Raise ValueError on anything the kernel does not take."""
+def choose_path(dtype, hd: int) -> str:
+    """``"tc"`` or ``"fma"`` for a (dtype, head dim) the library takes;
+    ValueError otherwise."""
+    if dtype not in _DTYPE_TAG:
+        raise ValueError(f"dtype {dtype}; the kernel takes one of "
+                         "float32/bfloat16 for all of q, k, v")
+    if hd > 128 or hd % 8:
+        raise ValueError(f"head_dim={hd}: the kernel takes hd <= 128 with "
+                         "hd % 8 == 0")
+    return "tc" if dtype == torch.bfloat16 and hd % 16 == 0 else "fma"
+
+
+def check_inputs(q, k, v) -> str:
+    """Raise ValueError on anything the kernel does not take; return
+    the path (``choose_path``) the input takes."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"{name} must be on q's CUDA device, got "
@@ -50,19 +70,22 @@ def check_inputs(q, k, v) -> None:
     Hk = k.shape[2]
     if H % Hk:
         raise ValueError(f"H={H} is not a multiple of Hk={Hk}")
-    if hd > 128 or hd % 8:
-        raise ValueError(f"head_dim={hd}: the kernel takes hd <= 128 with "
-                         "hd % 8 == 0")
+    path = choose_path(q.dtype, hd)
     if B * S * H * hd >= 2 ** 31 or B * S >= 2 ** 31:
         raise ValueError("tensor too large for the kernel's int sizes")
+    if path == "tc" and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("the tensor-core path loads q, k, v by TMA, which "
+                         "needs 16-byte aligned base addresses")
+    return path
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool, window: int):
-    """q (B,S,H,hd), k/v (B,S,Hk,hd) CUDA tensors -> o (B,S,H,hd).
+    """q (B,S,H,hd), k/v (B,S,Hk,hd) CUDA tensors -> (o (B,S,H,hd), the
+    path that ran: ``"tc"`` or ``"fma"``).
 
     Keys with kpos <= qpos - window are masked (window >= 2**31 - 1 is
     clamped: it masks nothing either way)."""
-    check_inputs(q, k, v)
+    path = check_inputs(q, k, v)
     B, S, H, hd = q.shape
     o = torch.empty_like(q)
     fn = _entry()
@@ -73,6 +96,6 @@ def flash_attention_fwd(q, k, v, *, causal: bool, window: int):
                 1.0 / math.sqrt(hd), _DTYPE_TAG[q.dtype],
                 torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {rc}")
-    return o
+        raise RuntimeError(f"flash_attention kernel launch failed ({path} "
+                           f"path): CUDA error {rc}")
+    return o, path

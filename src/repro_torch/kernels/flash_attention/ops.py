@@ -10,7 +10,10 @@ grad the call raises instead of returning an output with no gradient.
 Training runs attention on the plain path (``layers.sdpa``).
 
 ``launches`` counts kernel launches made through this wrapper (a plain
-integer; set it to 0 to start a count).
+integer; set it to 0 to start a count); ``tc_launches`` and
+``fma_launches`` count them by the path that ran (the tensor-core kernel
+for bf16 with hd % 16 == 0, the f32-FMA kernel otherwise; see
+``kernel.choose_path``), so ``launches == tc_launches + fma_launches``.
 """
 from __future__ import annotations
 
@@ -21,6 +24,8 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.models.layers import GLOBAL_WINDOW
 
 launches = 0
+tc_launches = 0
+fma_launches = 0
 
 
 def normalize_window(window) -> int:
@@ -38,7 +43,7 @@ def normalize_window(window) -> int:
 
 def flash_attention(q, k, v, *, causal: bool = True, window=None):
     """q (B,S,H,hd), k/v (B,S,Hk,hd) -> (B,S,H,hd)."""
-    global launches
+    global launches, tc_launches, fma_launches
     w = normalize_window(window)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=w)
@@ -48,6 +53,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None):
             "no gradient.  Run attention on the plain path to train "
             "(use_kernels=False, models.layers.sdpa) or call it under "
             "torch.no_grad()")
-    out = flash_attention_fwd(q, k, v, causal=causal, window=w)
+    out, path = flash_attention_fwd(q, k, v, causal=causal, window=w)
     launches += 1
+    if path == "tc":
+        tc_launches += 1
+    else:
+        fma_launches += 1
     return out

@@ -8,9 +8,11 @@ CUDA kernel keeps by masking ``kpos < S``.  The CPU path of
 """
 from __future__ import annotations
 
-from repro_torch.models.layers import sdpa
-
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, window=None):
     """q (B,S,H,hd), k/v (B,S,Hk,hd) -> (B,S,H,hd)."""
+    # imported here: ``models`` imports ``lm``, which imports ``ops``,
+    # which imports this module, so a top-level import would make a
+    # cycle whenever this module is imported first
+    from repro_torch.models.layers import sdpa
     return sdpa(q, k, v, causal=causal, window=window)

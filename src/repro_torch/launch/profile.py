@@ -5,9 +5,9 @@
 Serving: ``serve.generate``'s two phases at the main path's shapes
 (microllama-300m, bf16, 4 prompts of 512 tokens, 32 greedy tokens) —
 one prefill (flash kernel on) and the greedy decode steps; then the SSM
-serving path at ``chip_smoke.py``'s shapes (falcon-mamba-7b, bf16, 4
-prompts of 512 tokens) — one prefill (scan kernel on) and one decode
-step.  Training:
+and hybrid serving paths at ``chip_smoke.py``'s shapes (falcon-mamba-7b,
+bf16, 4 prompts of 512 tokens; hymba-1.5b, bf16, 2 prompts of 1536
+tokens) — one prefill (kernels on) and one decode step each.  Training:
 the phases of one AdLoCo trainer round at the training main path's
 shapes (microllama-300m, bf16 with f32 AdamW state, seq 128, batch 8,
 M = 2 workers) — one inner step, the per-sample gradients of a probe of
@@ -42,7 +42,9 @@ from repro_torch.launch.train import build_loss_fn
 from repro_torch.models import lm
 
 ARCH, BATCH, PROMPT, NEW, TOP = "microllama-300m", 4, 512, 32, 8
-SSM_ARCH = "falcon-mamba-7b"
+# (arch, batch, prompt, phase-name prefix) of the SSM and hybrid paths
+RECURRENT = (("falcon-mamba-7b", 4, 512, "ssm"),
+             ("hymba-1.5b", 2, 1536, "hybrid"))
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_WORKERS = 128, 8, 2
 
 
@@ -122,29 +124,31 @@ def run():
 
 
 @torch.inference_mode()
-def run_ssm():
-    """falcon-mamba-7b at full width, bf16: one prefill (4 x 512, the
-    scan kernel on) and one greedy decode step, each after a warm-up."""
+def run_recurrent(arch: str, batch: int, prompt: int, name: str):
+    """``arch`` at full width, bf16: one prefill (batch x prompt, the
+    kernels on) and one greedy decode step, each after a warm-up."""
     dev = resolve_device()
-    cfg = get_config(SSM_ARCH)
+    cfg = get_config(arch)
     params = models.init_params(cfg, 0, device=dev)
     gen = torch.Generator(device=dev).manual_seed(1)
-    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt),
                             generator=gen, device=dev)
 
     def prefill():
-        return models.prefill(params, prompts, cfg, PROMPT + NEW,
+        return models.prefill(params, prompts, cfg, prompt + NEW,
                               use_kernels=True, last_only=True)
 
-    row, (logits, cache) = _profiled("ssm_prefill", prefill)
+    row, (logits, cache) = _profiled(f"{name}_prefill", prefill)
     tok = torch.argmax(logits[:, -1], dim=-1)
-    step = iter(range(PROMPT, PROMPT + NEW))
+    step = iter(range(prompt, prompt + NEW))
 
     def decode():
         out, _ = models.decode_step(params, cache, tok, next(step), cfg)
         return torch.argmax(out, dim=-1)
 
-    row2, _ = _profiled("ssm_decode_step", decode)
+    row2, _ = _profiled(f"{name}_decode_step", decode)
+    del params, cache
+    torch.cuda.empty_cache()
     return [row, row2]
 
 
@@ -212,7 +216,10 @@ def main() -> int:
                          capture_output=True, text=True).stdout.strip()
     print(json.dumps({"nvidia_smi": smi, "torch": torch.__version__}),
           flush=True)
-    for row in run() + run_ssm() + run_training():
+    rows = run()
+    for spec in RECURRENT:
+        rows += run_recurrent(*spec)
+    for row in rows + run_training():
         print(json.dumps(row), flush=True)
     return 0
 

@@ -93,14 +93,37 @@ def test_window_forms_agree():
 
 
 def test_cpu_path_counts_no_launch_and_binding_rejects_cpu():
-    """The CPU path is the plain version: no kernel launch is counted,
-    and the CUDA binding refuses CPU tensors (before any build)."""
+    """The CPU path is the plain version: no kernel launch is counted on
+    any path, and the CUDA binding refuses CPU tensors (before any
+    build)."""
     q, k, v = _torch(_inputs(1, 32, 2, 1, 32, seed=3), "float32")
-    before = ops.launches
+    before = ops.launches, ops.tc_launches, ops.fma_launches
     ops.flash_attention(q, k, v)
-    assert ops.launches == before
+    ops.flash_attention(*(t.to(torch.bfloat16) for t in (q, k, v)))
+    assert (ops.launches, ops.tc_launches, ops.fma_launches) == before
     with pytest.raises(ValueError, match="CUDA device"):
         kernel.flash_attention_fwd(q, k, v, causal=True, window=8)
+
+
+@pytest.mark.parametrize("dtype,hd,path", [
+    (torch.bfloat16, 64, "tc"), (torch.bfloat16, 128, "tc"),
+    (torch.bfloat16, 80, "tc"), (torch.bfloat16, 96, "tc"),
+    (torch.bfloat16, 32, "tc"), (torch.bfloat16, 40, "fma"),
+    (torch.bfloat16, 72, "fma"), (torch.float32, 64, "fma"),
+    (torch.float32, 128, "fma"), (torch.float32, 40, "fma"),
+])
+def test_path_choice_by_dtype_and_head_dim(dtype, hd, path):
+    """bf16 with hd % 16 == 0 takes the tensor-core kernel; f32 (TF32
+    would keep three digits) and other bf16 head dims the FMA kernel."""
+    assert kernel.choose_path(dtype, hd) == path
+
+
+@pytest.mark.parametrize("dtype,hd", [
+    (torch.bfloat16, 256), (torch.float32, 256), (torch.bfloat16, 136),
+    (torch.bfloat16, 20), (torch.float16, 64)])
+def test_path_choice_rejects_what_no_kernel_takes(dtype, hd):
+    with pytest.raises(ValueError):
+        kernel.choose_path(dtype, hd)
 
 
 # (B, S, H, Hk, hd, window, causal, dtype) as chip_smoke.py checks them
@@ -117,6 +140,44 @@ GPU_CASES = [
     (1, 128, 8, 8, 32, None, True, "float32"),
     (1, 192, 4, 2, 64, None, False, "float32"),
 ]
+
+
+# bf16 edge cases of the tensor-core kernel: hd 128, hd 80 and 32 (hd
+# past a 64-dim block and short of one), ragged S, a window smaller than
+# a tile, bidirectional at a padded S, and a window of 0 (every row
+# fully masked: writes 0); and bf16 hd 40 on the FMA kernel
+TC_CASES = [
+    (1, 384, 6, 3, 128, 64, True, "bfloat16"),
+    (1, 96, 4, 4, 80, None, True, "bfloat16"),
+    (1, 128, 8, 8, 32, None, True, "bfloat16"),
+    (2, 200, 4, 2, 64, None, True, "bfloat16"),
+    (2, 256, 4, 1, 64, 17, True, "bfloat16"),
+    (1, 192, 4, 2, 64, None, False, "bfloat16"),
+    (1, 130, 4, 2, 128, 0, True, "bfloat16"),
+    (1, 96, 4, 2, 40, None, True, "bfloat16"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,Hk,hd,window,causal,dtype", TC_CASES)
+def test_bf16_edge_cases_on_card_take_their_path(B, S, H, Hk, hd, window,
+                                                 causal, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    q, k, v = [t.cuda() for t in _torch(_inputs(B, S, H, Hk, hd), dtype)]
+    path = kernel.choose_path(q.dtype, hd)
+    before = ops.tc_launches, ops.fma_launches
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert (ops.tc_launches - before[0], ops.fma_launches - before[1]) == (
+        (1, 0) if path == "tc" else (0, 1))
+    w = ops.normalize_window(window)
+    want = flash_attention_ref(q, k, v, causal=causal, window=w)
+    if w <= 0:   # no visible key: the kernel writes 0, the plain version
+        # spreads the softmax evenly over the masked keys
+        want = torch.zeros_like(want)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **TOL[dtype])
 
 
 @pytest.mark.gpu

@@ -68,6 +68,30 @@ def test_importing_every_module_loads_no_jax():
     assert out.stdout.strip() == "[]"
 
 
+def test_every_module_imports_alone_in_a_fresh_module_state():
+    """Each module imports first, with no other module of the port
+    loaded: an import cycle that only shows in one import order (ROADMAP
+    3.6) fails here.  One subprocess; only ``torch`` stays loaded."""
+    names = list(_module_names())
+    code = ("import importlib, sys, traceback\n"
+            "import torch\n"
+            "bad = []\n"
+            f"for m in {names!r}:\n"
+            "    for k in [k for k in sys.modules\n"
+            "              if k.split('.')[0] == 'repro_torch']:\n"
+            "        del sys.modules[k]\n"
+            "    try:\n"
+            "        importlib.import_module(m)\n"
+            "    except Exception:\n"
+            "        bad.append((m, traceback.format_exc(limit=1)))\n"
+            "print(bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=ROOT, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
 def test_entry_points_default_to_cuda_and_never_fall_back(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = reduced(get_config("microllama-300m"))

@@ -117,6 +117,33 @@ def test_binding_rejects_what_the_kernel_does_not_take():
         kernel.mamba_scan_fwd(u, dt, -torch.exp(A_log), Bm, Cm)
 
 
+@pytest.mark.parametrize("B,di,n,lanes", [
+    (4, 8192, 16, 4),     # falcon-mamba-7b prefill: 131,072 threads at 4
+    (2, 3200, 16, 4),     # hymba-1.5b prefill: 25,600 threads at 4
+    (1, 2048, 16, 8),     # 16,384 threads at 8
+    (1, 1024, 16, 16),    # short of the fill at every count: the most
+    (1, 96, 8, 8),        # n <= 8: at most 8 lanes
+    (1, 4096, 8, 4),
+])
+def test_lanes_per_channel_fill_the_card(B, di, n, lanes):
+    assert kernel.choose_lanes(B, di, n) == lanes
+    assert lanes in kernel.LANES and lanes <= (8 if n <= 8 else 16)
+
+
+def test_binding_rejects_state_and_batch_it_cannot_hold():
+    """n > 16 states do not fit the lanes' registers and B > 65535 the
+    grid: the binding raises before it builds or launches."""
+    u, dt, A_log, Bm, Cm = map(torch.from_numpy, _inputs(1, 4, 8, 17))
+    with pytest.raises(ValueError, match="state size"):
+        kernel.mamba_scan_fwd(u, dt, -torch.exp(A_log), Bm, Cm)
+    B = kernel.MAX_BATCH + 1
+    u = torch.zeros((B, 1, 1))
+    Bm = torch.zeros((B, 1, 4))
+    with pytest.raises(ValueError, match="range"):
+        kernel.mamba_scan_fwd(u, u.clone(), torch.zeros((1, 4)), Bm,
+                              Bm.clone())
+
+
 # ------------------------------------------------------------------
 # on the card
 # ------------------------------------------------------------------
@@ -154,6 +181,26 @@ def test_kernel_matches_plain_on_card(B, S, di, n, dtype):
     yr, hr = mamba_scan_ref(*x)
     torch.testing.assert_close(y.float(), yr.float(), **TOL[dtype])
     torch.testing.assert_close(h.float(), hr.float(), **TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,di,n,dtype", [
+    (2, 300, 3200, 16, "bfloat16"),        # ragged tiles at every lane count
+    (1, 77, 100, 5, "float32"),            # di past no vector width
+    (1, 129, 40, 8, "bfloat16"),
+])
+def test_every_lane_count_matches_plain_on_card(B, S, di, n, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    u, dt, A_log, Bm, Cm = _cuda_inputs(B, S, di, n, dtype)
+    neg_A = -torch.exp(A_log)
+    yr, hr = mamba_scan_ref(u, dt, A_log, Bm, Cm)
+    for lanes in [lanes for lanes in kernel.LANES
+                  if lanes <= (8 if n <= 8 else 16)]:
+        y, h = kernel.mamba_scan_fwd(u, dt, neg_A, Bm, Cm, lanes=lanes)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(y.float(), yr.float(), **TOL[dtype])
+        torch.testing.assert_close(h.float(), hr.float(), **TOL[dtype])
 
 
 @pytest.mark.gpu
