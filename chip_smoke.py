@@ -57,7 +57,28 @@ any failure raises and exits non-zero:
      kernel never launched, and the kernel and plain statistics of one
      stats round's G agree.
 
-Then the ``kernels`` summary line, the card's name and power limit, and
+  6. the cluster runtime: ``repro_torch.cluster.run_cluster`` with the
+     training phase's settings at full width in bf16, on simulated H100
+     nodes (``cluster.node``'s defaults), each run with the gradstats
+     counts set to 0 just before it and read just after.  ``sync``
+     (merging off, 4 nodes at a 2x speed spread, flat fabric) against
+     ``train_adloco`` on the same inputs: losses, batches and the comm
+     log equal, final params within one bf16 rounding step of the
+     largest, kernel and plain statistics of one stats round's G equal;
+     ``async`` (merging off, batch statistics piggybacked on the outer
+     sync) on 2 pods x 2 nodes joined by 400 Gb/s InfiniBand under
+     ``bursty_congestion`` timed from the reckoned round and sync
+     (at least two windows inside the run), traced: every trainer runs
+     T rounds, the Perfetto export validates, a second run gives the
+     same trace digest and summary; ``elastic`` (merging on, 6 nodes, 2
+     spare shards) with a slowdown, a leave and a join: the join clones
+     a trainer onto the spare nodes and the final pool is what the
+     events say.  Per run: simulated sim/compute/comm time, wall time,
+     wall ms per round, peak memory, gradstats launches (one pair per
+     stats reduction).
+
+Then the ``kernels`` summary line (gradstats with the training and the
+cluster path's launches), the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Without a card (or without the
 repository around it) it exits non-zero and prints no result.
 
@@ -74,6 +95,7 @@ times (its kernels take milliseconds).
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import statistics
@@ -1025,6 +1047,243 @@ def phase_train():
     return launches
 
 
+# the links between pods in the async cluster run: one 400 Gb/s NDR
+# InfiniBand NIC per node (NVIDIA ConnectX-7), in bytes/s, and a few us
+# per hop through its switch (a choice of this script)
+IB_NDR_BW = 400e9 / 8
+IB_NDR_LATENCY = 5e-6
+
+
+def cluster_inputs(argv, spares: int, dev):
+    """Model, loss, config and fresh seeded inputs of ``launch.train``'s
+    settings (``argv``), with ``spares`` spare data shards."""
+    from repro_torch import models
+    from repro_torch.data import make_shard_streams
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+
+    cfg, acfg = train.make_configs(train.parse_args(argv))
+    k, M = acfg.num_init_trainers, acfg.nodes_per_gpu
+    inits = [lm.param_dict(models.init_params(
+        cfg, train.trainer_seed(acfg.seed, i), device=dev))
+        for i in range(k)]
+    streams = make_shard_streams(cfg.vocab_size, train.parse_args(
+        argv).seq_len, k * M + spares, seed=acfg.seed, device=dev)
+    return cfg, acfg, train.build_loss_fn(cfg), inits, streams
+
+
+def param_checksum(params) -> float:
+    """f32 sum of every parameter (the cluster runs' ``eval_fn``: a
+    deterministic reduction, so equal params give equal sums)."""
+    return float(torch.stack([v.float().sum() for v in params.values()])
+                 .sum())
+
+
+def cluster_run(label: str, dev, argv, *, spares: int = 0, acfg_kw=None,
+                **kw):
+    """One ``run_cluster`` with the gradstats counts set to 0 just before
+    it and read just after; prints the run's line."""
+    from repro_torch.cluster import run_cluster
+    from repro_torch.kernels.gradstats import ops as gs_ops
+
+    cfg, acfg, loss_fn, inits, streams = cluster_inputs(argv, spares, dev)
+    acfg = dataclasses.replace(acfg, **(acfg_kw or {}))
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    gs_ops.colsum_launches = gs_ops.moments_launches = 0
+    t0 = time.perf_counter()
+    pool, hist, rep = run_cluster(loss_fn, inits, streams, acfg,
+                                  eval_fn=param_checksum, device=dev, **kw)
+    wall = time.perf_counter() - t0
+    launches = {"colsum": gs_ops.colsum_launches,
+                "moments": gs_ops.moments_launches}
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+    s = rep.summary(extended=True)
+    emit("cluster", run=label, policy=rep.policy, scenario=rep.scenario,
+         sim_time=rep.sim_time, compute_time=rep.compute_time,
+         comm_time=rep.comm_time, num_syncs=rep.num_syncs,
+         num_stats_syncs=rep.num_stats_syncs, rounds=rep.rounds,
+         pool_size=pool.k, wall_s=wall,
+         round_wall_ms=[w * 1e3 for w in rep.round_wall_s],
+         mean_round_wall_ms=1e3 * statistics.fmean(rep.round_wall_s),
+         max_memory_allocated=peak, gradstats_launches=launches,
+         rounds_computed=len(rep.round_wall_s),
+         losses=hist.loss, requested_batches=hist.requested_batches,
+         overlap_frac=s.get("overlap_frac"),
+         utilization=s.get("utilization"),
+         applied_events=[{k: v for k, v in e.items()}
+                         for e in rep.applied_events])
+    # every round computed (preempted ones too) reduces its statistics
+    # once, launching both kernels once (on the card; a CPU tensor takes
+    # the plain version).  Async fuses only the newest of them onto an
+    # outer sync, so num_stats_syncs may count fewer.
+    rounds = len(rep.round_wall_s)
+    if dev.type == "cuda" and not (
+            launches["colsum"] == launches["moments"] == rounds):
+        raise AssertionError(f"{label}: gradstats launches {launches} "
+                             f"against {rounds} rounds computed")
+    if not all(math.isfinite(x) for x in hist.loss):
+        raise AssertionError(f"{label}: non-finite loss {hist.loss}")
+    return pool, hist, rep, launches
+
+
+def round_estimates(cfg, profiles, batch: int, H: int, stats: bool,
+                    network, nodes):
+    """(round s, outer sync s) on the simulated clock for one trainer on
+    ``nodes``: the node roofline of H inner steps at ``batch`` samples
+    (6·N·samples FLOPs, 3 param passes per step), and the outer
+    all-reduce of the params (plus the stats vector when ``stats``)."""
+    n = cfg.param_count()
+    pbytes = 2 * n                                 # bf16 params
+    compute = max(p.compute_time(6.0 * n * batch * H, 3.0 * pbytes * H, 0.0)
+                  for p in nodes)
+    payload = pbytes + (4.0 * (n + 6) if stats else 0.0)
+    return compute, network.allreduce_time(payload, nodes, now=0.0)
+
+
+def phase_cluster(dev=None, argv=None):
+    """The cluster runtime at full width: sync (against ``train_adloco``
+    on the same inputs), async on a 2-pod fabric under bursty
+    congestion (traced, twice: the digest repeats), elastic with a
+    slowdown, a leave and a join.  Returns the gradstats launches of the
+    three cluster runs, by run."""
+    from repro_torch.cluster import (ClusterEvent, NetworkModel, Topology,
+                                     Trace, build_scenario, interleave_pods,
+                                     make_heterogeneous_profiles,
+                                     make_pod_profiles, validate_perfetto)
+    from repro_torch.core import train_adloco
+
+    dev = torch.device("cuda") if dev is None else dev
+    argv = TRAIN_ARGV if argv is None else argv
+    launches = {}
+
+    # 1. sync, merging off: the numerics of train_adloco
+    profiles = make_heterogeneous_profiles(4, ratio=2.0)
+    rec = {"reductions": 0}
+    with compare_one_stats_round(rec):
+        pool, hist, rep, launches["sync"] = cluster_run(
+            "sync", dev, argv, acfg_kw={"enable_merge": False},
+            policy="sync", profiles=profiles, network=NetworkModel())
+    scale = max(abs(v) for v in rec["plain"]) + 1e-6
+    agree = all(abs(x - y) <= 1e-4 * max(abs(x), abs(y)) + 1e-4 * scale
+                for x, y in zip(rec["kernel"], rec["plain"]))
+    cfg, acfg, loss_fn, inits, streams = cluster_inputs(argv, 0, dev)
+    acfg = dataclasses.replace(acfg, enable_merge=False)
+    pool_l, hist_l = train_adloco(loss_fn, inits, streams, acfg,
+                                  eval_fn=param_checksum, device=dev)
+    k = acfg.num_init_trainers
+    per = {}                          # (round, tid) -> (loss, batch, sum)
+    for t, ev, loss, bs in zip(hist.outer_step, hist.eval_loss_by_trainer,
+                               hist.loss, hist.requested_batches):
+        (tid, chk), = ev.items()
+        per[t, tid] = (loss, bs[tid], chk)
+    losses_c = [sum([per[t, i][0] for i in range(k)]) / k
+                for t in hist_l.outer_step]
+    batches_c = [[per[t, i][1] for i in range(k)] for t in hist_l.outer_step]
+    sums_equal = all(per[t, i][2] == hist_l.eval_loss_by_trainer[t - 1][i]
+                     for t in hist_l.outer_step for i in range(k))
+    log_c = sorted((e["kind"], e["step"], e["bytes"])
+                   for e in pool.comms.log if e["kind"] != "stats")
+    log_l = sorted((e["kind"], e["step"], e["bytes"])
+                   for e in pool_l.comms.log)
+    diff = max(float((a.float() - b.float()).abs().max())
+               for a, b in zip(pool.global_params.values(),
+                               pool_l.global_params.values()))
+    big = max(float(v.float().abs().max())
+              for v in pool_l.global_params.values())
+    bitwise = all(torch.equal(a, b) for a, b in zip(
+        pool.global_params.values(), pool_l.global_params.values()))
+    # one bf16 rounding step at the largest magnitude
+    tol = big * 2.0 ** -8
+    emit("cluster_sync_vs_train_adloco", losses_cluster=losses_c,
+         losses_train_adloco=hist_l.loss, batches_cluster=batches_c,
+         batches_train_adloco=hist_l.requested_batches,
+         comm_log_equal=log_c == log_l, outer_events=len(log_c),
+         param_sums_equal_every_round=sums_equal,
+         final_params_max_abs_diff=diff, tolerance=tol, bitwise=bitwise,
+         stats_G_shape=rec.get("shape"), stats_kernel=rec.get("kernel"),
+         stats_plain=rec.get("plain"), stats_agree=agree)
+    if losses_c != hist_l.loss or batches_c != hist_l.requested_batches \
+            or log_c != log_l or diff > tol or not agree:
+        raise AssertionError("the sync cluster run and train_adloco "
+                             "disagree")
+    del pool, pool_l, hist, hist_l, inits, streams
+
+    # 2. async + piggybacked stats on 2 pods x 2 nodes, bursty congestion
+    # between the pods, traced, run twice; merging off, so every trainer
+    # runs its T rounds
+    pods = make_pod_profiles([2, 2], ratio=2.0)
+    profiles = interleave_pods(pods)
+    topo = Topology.from_profiles(pods, inter_bw=IB_NDR_BW,
+                                  inter_latency=IB_NDR_LATENCY)
+    round_s, sync_s = round_estimates(cfg, profiles, acfg.initial_batch_size,
+                                      acfg.num_inner_steps, True, topo,
+                                      profiles[:acfg.nodes_per_gpu])
+    knobs = dict(start=round_s, period=sync_s / 2, burst=sync_s / 4,
+                 count=6)
+    runs = []                         # (trace, report): no tensors kept
+    for rep_i in range(2):
+        trace = Trace()
+        _, _, rep, n = cluster_run(
+            f"async_{rep_i}", dev, argv, acfg_kw={"enable_merge": False},
+            policy="async", profiles=profiles, network=topo, trace=trace,
+            scenario=build_scenario("bursty_congestion", **knobs))
+        runs.append((trace, rep))
+        launches.setdefault("async", n)
+    trace, rep = runs[0]
+    inside = [e for e in rep.applied_events
+              if e["kind"] == "fabric" and e["time"] < rep.sim_time]
+    problems = validate_perfetto(trace.to_perfetto())
+    digests = [r[0].sim_digest() for r in runs]
+    emit("cluster_async_checks", round_estimate_s=round_s,
+         sync_estimate_s=sync_s, knobs=knobs,
+         windows_inside_horizon=len(inside), perfetto_problems=problems,
+         sim_digests=digests,
+         summaries_equal=runs[0][1].summary() == runs[1][1].summary(),
+         trace_spans=len(trace.spans), trace_events=len(trace.events))
+    T = acfg.num_outer_steps
+    if (any(r != T for r in rep.rounds.values()) or len(rep.rounds) != k
+            or rep.num_stats_syncs <= 0 or len(inside) < 2 or problems
+            or digests[0] != digests[1]
+            or runs[0][1].summary() != runs[1][1].summary()):
+        raise AssertionError(f"async cluster run failed its checks: "
+                             f"{rep.summary(extended=True)}")
+    del runs, trace
+
+    # 3. elastic with merging: a slowdown, a leave, a join (onto the two
+    # spare nodes and shards)
+    profiles = make_heterogeneous_profiles(6, ratio=2.0)
+    net = NetworkModel()
+    round_s, _ = round_estimates(cfg, profiles, acfg.initial_batch_size,
+                                 acfg.num_inner_steps, False, net,
+                                 profiles[:acfg.nodes_per_gpu])
+    _, stats_s = round_estimates(cfg, profiles, 0, 0, True, net,
+                                 profiles[:acfg.nodes_per_gpu])
+    r = round_s + stats_s                 # a round boundary, stats included
+    scen = [ClusterEvent(time=0.5 * r, kind="slowdown", node=1,
+                         factor=2.0, duration=r),
+            ClusterEvent(time=1.2 * r, kind="leave"),
+            ClusterEvent(time=1.6 * r, kind="join")]
+    pool, hist, rep, launches["elastic"] = cluster_run(
+        "elastic", dev, argv, spares=2, policy="elastic", profiles=profiles,
+        network=net, scenario=scen)
+    kinds = [e["kind"] for e in rep.applied_events]
+    merged = sum(len(e["merged"]) for e in rep.applied_events
+                 if e["kind"] == "merge")
+    expect = k - kinds.count("leave") + kinds.count("join") - merged
+    join = next((e for e in rep.applied_events if e["kind"] == "join"), None)
+    emit("cluster_elastic_checks", round_boundary_estimate_s=r,
+         events=kinds, final_pool=pool.k, expected_pool=expect,
+         join=join)
+    if not ({"slowdown", "leave", "join"} <= set(kinds) and join
+            and join["cloned_from"] in range(k) and pool.k == expect):
+        raise AssertionError(f"elastic cluster run failed its checks: "
+                             f"{rep.applied_events}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1044,6 +1303,7 @@ def main() -> int:
     timed("prefill_f32_hybrid", phase_hybrid_f32)
     timed("server_ssm", phase_server, "falcon-mamba-7b", "mamba_scan")
     train_launches = timed("train", phase_train)
+    cluster_launches = timed("cluster", phase_cluster)
     kernels = [{
         "name": "flash_attention", "route": "cuda", "source": FLASH_SRC,
         "replaces": FLASH_TPU, "launches": launches["flash_attention"],
@@ -1060,6 +1320,8 @@ def main() -> int:
         "shape": flash["shape"], "dtype": flash["dtype"]}, {
         "name": "gradstats_colsum", "route": "cuda", "source": GRADSTATS_SRC,
         "replaces": COLSUM_TPU, "launches": train_launches["colsum"],
+        "launches_cluster": {run: n["colsum"]
+                             for run, n in cluster_launches.items()},
         "max_abs_err": gs["gbar"], "ms": gs["colsum_ms"],
         "plain_ms": gs["plain_colsum_ms"], "bound_ms": gs["colsum_bound_ms"],
         "bound_by": gs["colsum_bound_by"],
@@ -1068,6 +1330,8 @@ def main() -> int:
         "name": "gradstats_moments", "route": "cuda",
         "source": GRADSTATS_SRC, "replaces": MOMENTS_TPU,
         "launches": train_launches["moments"],
+        "launches_cluster": {run: n["moments"]
+                             for run, n in cluster_launches.items()},
         "max_abs_err": max(gs["s"], gs["d"], gs["n2"]),
         "max_rel_err": max(gs["s_rel"], gs["d_rel"], gs["n2_rel"]),
         "ms": gs["moments_ms"], "plain_ms": gs["plain_moments_ms"],

@@ -3,8 +3,9 @@ DiLoCo core.  Port of ``repro/core/adloco.py``: a host-level
 orchestrator over the primitives in ``diloco.py``.
 
 The per-trainer round body (inner steps -> batch statistics -> requested
-batch update -> outer sync) lives in :class:`TrainerRound`;
-:func:`train_adloco` is the synchronous host loop over it.
+batch update -> outer sync) lives in :class:`TrainerRound`, shared by
+:func:`train_adloco` (the synchronous host loop) and
+``repro_torch.cluster.run_cluster`` (the event-driven cluster runtime).
 
 Ablations (paper Fig. 2) via AdLoCoConfig flags:
   adaptive=False       -> fixed-batch DiLoCo-style training
@@ -49,6 +50,9 @@ class History:
     eval_loss: List[float] = field(default_factory=list)
     # per-record {tid: eval loss}
     eval_loss_by_trainer: List[Dict[int, float]] = field(default_factory=list)
+    # eval loss of the batch-weighted average of the live pool at each
+    # record (what ``consolidate`` would return); cluster runtime only
+    eval_loss_pool: List[float] = field(default_factory=list)
     pool_size: List[int] = field(default_factory=list)
     requested_batches: List[List[int]] = field(default_factory=list)
     comm_events: List[int] = field(default_factory=list)
@@ -56,6 +60,9 @@ class History:
     samples: List[int] = field(default_factory=list)     # cumulative
     modes: List[List[str]] = field(default_factory=list)
     wall: List[float] = field(default_factory=list)
+    # simulated seconds (``repro_torch.cluster`` runtime only; empty for
+    # the host loop, which has no cluster clock)
+    sim_time: List[float] = field(default_factory=list)
     # device ms per phase per round (CUDA events; empty dicts on the CPU)
     phase_ms: List[Dict[str, float]] = field(default_factory=list)
 
@@ -238,6 +245,18 @@ class TrainerRound:
                 streams=[streams[i * M + m] for m in range(M)],
             ))
         return TrainerPoolState(trainers=trainers)
+
+    def new_trainer(self, tid: int, params: Any,
+                    streams: List[Any]) -> TrainerState:
+        """Fresh trainer (elastic join): given params, fresh optimizer
+        states on the params' device."""
+        M = self.acfg.nodes_per_gpu
+        return TrainerState(
+            tid=tid, params=params,
+            outer_opt_state=self.outer_opt.init(params),
+            inner_opt_states=[self.inner_opt.init(params) for _ in range(M)],
+            requested_batch=self.acfg.initial_batch_size,
+            streams=list(streams))
 
     # --------------------------------------------------------- plans
     def plan_for(self, tr: TrainerState,
