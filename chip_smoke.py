@@ -60,11 +60,14 @@ any failure raises and exits non-zero:
   6. the cluster runtime: ``repro_torch.cluster.run_cluster`` with the
      training phase's settings at full width in bf16, on simulated H100
      nodes (``cluster.node``'s defaults), each run with the gradstats
-     counts set to 0 just before it and read just after.  ``sync``
-     (merging off, 4 nodes at a 2x speed spread, flat fabric) against
-     ``train_adloco`` on the same inputs: losses, batches and the comm
-     log equal, final params within one bf16 rounding step of the
-     largest, kernel and plain statistics of one stats round's G equal;
+     counts set to 0 just before it and read just after, and held to
+     one launch of each gradstats kernel per stats reduction (counted
+     apart from the launch counts) and per round computed, and to
+     kernel and plain statistics of its first stats round's G that
+     agree.  ``sync`` (merging off, 4 nodes at a 2x speed spread, flat
+     fabric) against ``train_adloco`` on the same inputs: losses,
+     batches, the comm log and every round's f32 param checksum equal,
+     final params bitwise equal;
      ``async`` (merging off, batch statistics piggybacked on the outer
      sync) on 2 pods x 2 nodes joined by 400 Gb/s InfiniBand under
      ``bursty_congestion`` timed from the reckoned round and sync
@@ -74,8 +77,7 @@ any failure raises and exits non-zero:
      spare shards) with a slowdown, a leave and a join: the join clones
      a trainer onto the spare nodes and the final pool is what the
      events say.  Per run: simulated sim/compute/comm time, wall time,
-     wall ms per round, peak memory, gradstats launches (one pair per
-     stats reduction).
+     wall ms per round, peak memory, gradstats launches.
 
 Then the ``kernels`` summary line (gradstats with the training and the
 cluster path's launches), the card's name and power limit, and
@@ -111,10 +113,13 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.cluster.node import HBM_BW, PEAK_FLOPS as PEAK_BF16  # noqa: E402
+
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s and
-# FLOP/s by input type (bf16 on the tensor cores, f32 on the CUDA cores)
-PEAK_BYTES = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# FLOP/s by input type (bf16 on the tensor cores, as the cluster's node
+# profiles take them; f32 on the CUDA cores)
+PEAK_BYTES = HBM_BW
+PEAK_FLOPS = {torch.bfloat16: PEAK_BF16, torch.float32: 67e12}
 # special-function-unit results (exp2 and kin) per clock per SM on
 # compute capability 9.0 (CUDA C++ Programming Guide, arithmetic
 # instruction throughput): every expf issues one
@@ -965,6 +970,14 @@ def compare_one_stats_round(rec: dict):
         batching.stats_from_matrix = orig
 
 
+def stats_agree(rec: dict) -> bool:
+    """Whether the kernel and plain stats of ``compare_one_stats_round``
+    agree: tests/test_kernels.py's drop-in criterion, at 1e-4 relative."""
+    scale = max(abs(v) for v in rec["plain"]) + 1e-6
+    return all(abs(x - y) <= 1e-4 * max(abs(x), abs(y)) + 1e-4 * scale
+               for x, y in zip(rec["kernel"], rec["plain"]))
+
+
 def run_training(label: str, argv):
     """One ``launch.train.run`` on the card with the launch counts set
     to 0 just before it and read just after; checks the run."""
@@ -997,10 +1010,7 @@ def run_training(label: str, argv):
     finite = all(bool(torch.isfinite(v.float()).all())
                  for v in final.values())
     names = ("mean_norm2", "sigma2", "ip_var", "orth_var", "b")
-    scale = max(abs(v) for v in rec["plain"]) + 1e-6
-    # tests/test_kernels.py's drop-in criterion, at 1e-4 relative
-    agree = all(abs(x - y) <= 1e-4 * max(abs(x), abs(y)) + 1e-4 * scale
-                for x, y in zip(rec["kernel"], rec["plain"]))
+    agree = stats_agree(rec)
     expected = sum(hist.pool_size)          # one reduction per trainer round
     emit("train", run=label, arch=cfg.name, dtype=cfg.dtype,
          params=cfg.param_count(), argv=argv,
@@ -1054,21 +1064,23 @@ IB_NDR_BW = 400e9 / 8
 IB_NDR_LATENCY = 5e-6
 
 
-def cluster_inputs(argv, spares: int, dev):
-    """Model, loss, config and fresh seeded inputs of ``launch.train``'s
-    settings (``argv``), with ``spares`` spare data shards."""
+def cluster_inputs(spares: int):
+    """Model, loss, config and fresh seeded inputs on the card of
+    ``launch.train``'s settings (``TRAIN_ARGV``), with ``spares`` spare
+    data shards."""
     from repro_torch import models
     from repro_torch.data import make_shard_streams
     from repro_torch.launch import train
     from repro_torch.models import lm
 
-    cfg, acfg = train.make_configs(train.parse_args(argv))
+    args = train.parse_args(TRAIN_ARGV)
+    cfg, acfg = train.make_configs(args)
     k, M = acfg.num_init_trainers, acfg.nodes_per_gpu
     inits = [lm.param_dict(models.init_params(
-        cfg, train.trainer_seed(acfg.seed, i), device=dev))
+        cfg, train.trainer_seed(acfg.seed, i), device="cuda"))
         for i in range(k)]
-    streams = make_shard_streams(cfg.vocab_size, train.parse_args(
-        argv).seq_len, k * M + spares, seed=acfg.seed, device=dev)
+    streams = make_shard_streams(cfg.vocab_size, args.seq_len, k * M + spares,
+                                 seed=acfg.seed, device="cuda")
     return cfg, acfg, train.build_loss_fn(cfg), inits, streams
 
 
@@ -1079,27 +1091,31 @@ def param_checksum(params) -> float:
                  .sum())
 
 
-def cluster_run(label: str, dev, argv, *, spares: int = 0, acfg_kw=None,
-                **kw):
-    """One ``run_cluster`` with the gradstats counts set to 0 just before
-    it and read just after; prints the run's line."""
+def cluster_run(label: str, *, spares: int = 0, acfg_kw=None, **kw):
+    """One ``run_cluster`` on the card with the gradstats counts set to 0
+    just before it and read just after, its stats reductions counted and
+    the first one also computed by the plain version; prints the run's
+    line and checks the run."""
     from repro_torch.cluster import run_cluster
     from repro_torch.kernels.gradstats import ops as gs_ops
 
-    cfg, acfg, loss_fn, inits, streams = cluster_inputs(argv, spares, dev)
+    cfg, acfg, loss_fn, inits, streams = cluster_inputs(spares)
     acfg = dataclasses.replace(acfg, **(acfg_kw or {}))
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rec = {"reductions": 0}
     gs_ops.colsum_launches = gs_ops.moments_launches = 0
     t0 = time.perf_counter()
-    pool, hist, rep = run_cluster(loss_fn, inits, streams, acfg,
-                                  eval_fn=param_checksum, device=dev, **kw)
+    with compare_one_stats_round(rec):
+        pool, hist, rep = run_cluster(loss_fn, inits, streams, acfg,
+                                      eval_fn=param_checksum, device="cuda",
+                                      **kw)
     wall = time.perf_counter() - t0
     launches = {"colsum": gs_ops.colsum_launches,
                 "moments": gs_ops.moments_launches}
-    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+    peak = torch.cuda.max_memory_allocated()
+    agree = stats_agree(rec)
     s = rep.summary(extended=True)
     emit("cluster", run=label, policy=rep.policy, scenario=rep.scenario,
          sim_time=rep.sim_time, compute_time=rep.compute_time,
@@ -1110,20 +1126,27 @@ def cluster_run(label: str, dev, argv, *, spares: int = 0, acfg_kw=None,
          mean_round_wall_ms=1e3 * statistics.fmean(rep.round_wall_s),
          max_memory_allocated=peak, gradstats_launches=launches,
          rounds_computed=len(rep.round_wall_s),
+         stats_reductions=rec["reductions"], stats_G_shape=rec["shape"],
+         stats_kernel=rec["kernel"], stats_plain=rec["plain"],
+         stats_agree=agree,
          losses=hist.loss, requested_batches=hist.requested_batches,
          overlap_frac=s.get("overlap_frac"),
          utilization=s.get("utilization"),
          applied_events=[{k: v for k, v in e.items()}
                          for e in rep.applied_events])
-    # every round computed (preempted ones too) reduces its statistics
-    # once, launching both kernels once (on the card; a CPU tensor takes
-    # the plain version).  Async fuses only the newest of them onto an
-    # outer sync, so num_stats_syncs may count fewer.
+    # every stats reduction launches both kernels once, and every round
+    # computed (preempted ones too) reduces its statistics once.  Async
+    # fuses only the newest of them onto an outer sync, so
+    # num_stats_syncs may count fewer.
     rounds = len(rep.round_wall_s)
-    if dev.type == "cuda" and not (
-            launches["colsum"] == launches["moments"] == rounds):
+    if not (rec["reductions"] == launches["colsum"] == launches["moments"]
+            == rounds > 0):
         raise AssertionError(f"{label}: gradstats launches {launches} "
-                             f"against {rounds} rounds computed")
+                             f"against {rec['reductions']} stats reductions "
+                             f"and {rounds} rounds computed")
+    if not agree:
+        raise AssertionError(f"{label}: kernel and plain stats differ: "
+                             f"{rec}")
     if not all(math.isfinite(x) for x in hist.loss):
         raise AssertionError(f"{label}: non-finite loss {hist.loss}")
     return pool, hist, rep, launches
@@ -1143,7 +1166,7 @@ def round_estimates(cfg, profiles, batch: int, H: int, stats: bool,
     return compute, network.allreduce_time(payload, nodes, now=0.0)
 
 
-def phase_cluster(dev=None, argv=None):
+def phase_cluster():
     """The cluster runtime at full width: sync (against ``train_adloco``
     on the same inputs), async on a 2-pod fabric under bursty
     congestion (traced, twice: the digest repeats), elastic with a
@@ -1155,24 +1178,17 @@ def phase_cluster(dev=None, argv=None):
                                      make_pod_profiles, validate_perfetto)
     from repro_torch.core import train_adloco
 
-    dev = torch.device("cuda") if dev is None else dev
-    argv = TRAIN_ARGV if argv is None else argv
     launches = {}
 
     # 1. sync, merging off: the numerics of train_adloco
     profiles = make_heterogeneous_profiles(4, ratio=2.0)
-    rec = {"reductions": 0}
-    with compare_one_stats_round(rec):
-        pool, hist, rep, launches["sync"] = cluster_run(
-            "sync", dev, argv, acfg_kw={"enable_merge": False},
-            policy="sync", profiles=profiles, network=NetworkModel())
-    scale = max(abs(v) for v in rec["plain"]) + 1e-6
-    agree = all(abs(x - y) <= 1e-4 * max(abs(x), abs(y)) + 1e-4 * scale
-                for x, y in zip(rec["kernel"], rec["plain"]))
-    cfg, acfg, loss_fn, inits, streams = cluster_inputs(argv, 0, dev)
+    pool, hist, rep, launches["sync"] = cluster_run(
+        "sync", acfg_kw={"enable_merge": False}, policy="sync",
+        profiles=profiles, network=NetworkModel())
+    cfg, acfg, loss_fn, inits, streams = cluster_inputs(0)
     acfg = dataclasses.replace(acfg, enable_merge=False)
     pool_l, hist_l = train_adloco(loss_fn, inits, streams, acfg,
-                                  eval_fn=param_checksum, device=dev)
+                                  eval_fn=param_checksum, device="cuda")
     k = acfg.num_init_trainers
     per = {}                          # (round, tid) -> (loss, batch, sum)
     for t, ev, loss, bs in zip(hist.outer_step, hist.eval_loss_by_trainer,
@@ -1191,22 +1207,20 @@ def phase_cluster(dev=None, argv=None):
     diff = max(float((a.float() - b.float()).abs().max())
                for a, b in zip(pool.global_params.values(),
                                pool_l.global_params.values()))
-    big = max(float(v.float().abs().max())
-              for v in pool_l.global_params.values())
+    # the same kernels on the same inputs in the same order: the final
+    # params are held bitwise equal (a wrong outer reduction moves them by
+    # about one round's update, far below any bf16 tolerance at the
+    # largest weight), and every round's f32 param checksum equal
     bitwise = all(torch.equal(a, b) for a, b in zip(
         pool.global_params.values(), pool_l.global_params.values()))
-    # one bf16 rounding step at the largest magnitude
-    tol = big * 2.0 ** -8
     emit("cluster_sync_vs_train_adloco", losses_cluster=losses_c,
          losses_train_adloco=hist_l.loss, batches_cluster=batches_c,
          batches_train_adloco=hist_l.requested_batches,
          comm_log_equal=log_c == log_l, outer_events=len(log_c),
          param_sums_equal_every_round=sums_equal,
-         final_params_max_abs_diff=diff, tolerance=tol, bitwise=bitwise,
-         stats_G_shape=rec.get("shape"), stats_kernel=rec.get("kernel"),
-         stats_plain=rec.get("plain"), stats_agree=agree)
+         final_params_max_abs_diff=diff, bitwise=bitwise)
     if losses_c != hist_l.loss or batches_c != hist_l.requested_batches \
-            or log_c != log_l or diff > tol or not agree:
+            or log_c != log_l or not sums_equal or not bitwise:
         raise AssertionError("the sync cluster run and train_adloco "
                              "disagree")
     del pool, pool_l, hist, hist_l, inits, streams
@@ -1227,7 +1241,7 @@ def phase_cluster(dev=None, argv=None):
     for rep_i in range(2):
         trace = Trace()
         _, _, rep, n = cluster_run(
-            f"async_{rep_i}", dev, argv, acfg_kw={"enable_merge": False},
+            f"async_{rep_i}", acfg_kw={"enable_merge": False},
             policy="async", profiles=profiles, network=topo, trace=trace,
             scenario=build_scenario("bursty_congestion", **knobs))
         runs.append((trace, rep))
@@ -1267,7 +1281,7 @@ def phase_cluster(dev=None, argv=None):
             ClusterEvent(time=1.2 * r, kind="leave"),
             ClusterEvent(time=1.6 * r, kind="join")]
     pool, hist, rep, launches["elastic"] = cluster_run(
-        "elastic", dev, argv, spares=2, policy="elastic", profiles=profiles,
+        "elastic", spares=2, policy="elastic", profiles=profiles,
         network=net, scenario=scen)
     kinds = [e["kind"] for e in rep.applied_events]
     merged = sum(len(e["merged"]) for e in rep.applied_events
