@@ -13,8 +13,9 @@ any failure raises and exits non-zero:
   2. each kernel against its plain version on the card, at the shapes
      the main paths give it and at edge cases, with stated tolerances;
      kernel / plain / library times and the card's bound at the
-     MicroLlama-300M and hymba-1.5b prefill shapes (flash attention;
-     hymba's with window 1024 and without), at the training
+     MicroLlama-300M, hymba-1.5b and gemma3-4b prefill shapes (flash
+     attention; hymba's and gemma3-4b's (hd 256) with window 1024 and
+     without; gemma3-4b's also in f32 and at a ragged S), at the training
      stats shape (8, 304,636,928) (gradstats, with a bit-identical
      repeat) and at falcon-mamba-7b's and hymba-1.5b's prefill shapes
      (the selective scan, with a bit-identical repeat, at every lane
@@ -79,13 +80,42 @@ any failure raises and exits non-zero:
      events say.  Per run: simulated sim/compute/comm time, wall time,
      wall ms per round, peak memory, gradstats launches.
 
-Then the ``kernels`` summary line (gradstats with the training and the
-cluster path's launches), the card's name and power limit, and
+  7. the chunked per-sample probe: 64 rows of microllama-300m's
+     gradient at full width in bf16, whose one-pass G (78 GB) does not
+     fit the card, in row chunks: one launch of each gradstats kernel
+     per chunk and sweep, peak under the card's memory, kernel and plain
+     statistics (same chunks) within 1e-4; an 8-row probe in one pass
+     against 3-row chunks.
+  8. training the hybrid and SSM families: ``launch.train.run`` on
+     hymba-1.5b at full width and falcon-mamba-7b cut to 8 of 64 layers
+     (widths unchanged), bf16 with f32 AdamW state, k=1, M=2, three
+     rounds: finite losses, a probe in row chunks, gradstats launches =
+     probe chunks (each sweep), no flash or scan launch; peak memory.
+  9. serving the other dense configs and the MoE family:
+     ``serve.generate`` in bf16 at full width on qwen3-0.6b, gemma3-4b
+     (2 x 2048, past its window, flash at hd 256), stablelm-1.6b,
+     phi3-medium-14b and deepseek-moe-16b, one at a time: flash on the
+     tensor-core path once per layer, kernel prefill within 5% of the
+     plain prefill's largest logit, ids in range; prefill and decode
+     times, peak memory.
+
+A phase alone: ``python3 -c 'import sys; sys.path.insert(0, "."); import
+chip_smoke as cs; cs.phase_probe()'`` from the root (each phase builds
+the kernels it needs at first use).
+
+Then the ``kernels`` summary line (flash with its launches per path and
+model and its hd-256 times; gradstats with the training, cluster,
+probe and family-training launches), the card's name and power limit,
+and
 last ``{"ok": true, "device": {...}}``.  Without a card (or without the
 repository around it) it exits non-zero and prints no result.
 
 TF32 is switched off for matmuls and cuDNN, so every f32 product runs in
 full f32 and f32 comparisons measure the kernels, not TF32 rounding.
+The caching allocator runs with expandable segments (unless
+``PYTORCH_CUDA_ALLOC_CONF`` says otherwise), as the training launcher
+sets it: full-width training of hymba-1.5b leaves gigabytes cached but
+unusable between live tensors otherwise.
 
 Times of the flash and scan kernels, their plain versions and library
 calls are device times (``device_ms``: CUDA events around one call,
@@ -100,6 +130,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -108,7 +139,10 @@ from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
 from pathlib import Path
 
-import torch
+# read when the CUDA allocator starts, so set before torch touches CUDA
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+
+import torch  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -259,7 +293,8 @@ def phase_env():
     hgmma = None
     for name, b in built.items():
         ptxas = [line.strip() for line in b.log.splitlines()
-                 if "registers" in line or "spill" in line]
+                 if any(w in line for w in ("entry function", "registers",
+                                            "spill"))]
         extra = {}
         if name == "flash_attention":
             hgmma = extra["hgmma_in_sass"] = sass_count(b.path, "HGMMA")
@@ -282,9 +317,9 @@ def sass_count(lib: Path, opcode: str) -> int:
 
 
 def phase_kernels():
-    """Flash kernel against its plain version; times at the MicroLlama
-    and hymba-1.5b prefill shapes.  Returns the timed rows, MicroLlama's
-    B=4 first."""
+    """Flash kernel against its plain version; times at the MicroLlama,
+    hymba-1.5b and gemma3-4b prefill shapes.  Returns the timed rows,
+    MicroLlama's B=4 first."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel, ops
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
@@ -313,6 +348,17 @@ def phase_kernels():
         (1, 192, 4, 2, 64, None, False, bf16, False),
         (1, 130, 4, 2, 128, 0, True, bf16, False),
         (1, 96, 4, 2, 40, None, True, bf16, False),
+        # gemma3-4b's prefill shape at hd 256: the tensor-core kernel's
+        # 256-wide tile, global and windowed; f32 and bf16 hd 136 on the
+        # FMA kernel's 256-wide tile; hd 256 at a ragged S; hd 192 (the
+        # 256-wide tile zero-filled past hd)
+        (2, 2048, 8, 4, 256, None, True, bf16, True),  # gemma3-4b global
+        (2, 2048, 8, 4, 256, 1024, True, bf16, True),  # gemma3-4b local
+        (2, 2048, 8, 4, 256, None, True, f32, False),
+        (2, 2000, 8, 4, 256, None, True, bf16, False),
+        (1, 300, 8, 4, 256, 100, True, f32, False),
+        (1, 200, 4, 2, 192, 100, True, bf16, False),
+        (1, 96, 4, 2, 136, None, True, bf16, False),
     ]
     rows = []
     for B, S, H, Hk, hd, window, causal, dt, timed in cases:
@@ -698,6 +744,80 @@ def prefill_parity(params, cfg, prompts, cache_len: int, kernels,
     return row, faults
 
 
+@contextmanager
+def moe_routes(store: list, replay: bool):
+    """While active, each MoE block's routing (``layers.moe_route``) is
+    appended to ``store``, or (``replay``) taken from ``store`` in call
+    order instead of computed."""
+    from repro_torch.models import layers as L
+
+    orig = L.moe_route
+    stored = iter(list(store))
+
+    def hooked(p, x, cfg, **kw):
+        if replay:
+            return next(stored)
+        r = orig(p, x, cfg, **kw)
+        store.append(r)
+        return r
+
+    L.moe_route = hooked
+    try:
+        yield
+    finally:
+        L.moe_route = orig
+
+
+def moe_prefill_parity(params, cfg, prompts, cache_len: int,
+                       rel_tol: float):
+    """``prefill_parity`` for a MoE model.  A token whose top-k experts
+    sit within rounding of each other can route differently in the
+    kernel and plain prefills (bf16 hidden states that differ in the
+    last bits), and one flipped expert moves the logits far more than
+    the attention kernel's rounding.  So the kernel prefill is held to
+    the plain one with the plain prefill's routing replayed, within
+    ``rel_tol`` of the plain logits' largest magnitude; the free-running
+    gap and the number of tokens whose expert set flipped are reported
+    beside it.  Returns (row, faults)."""
+    from repro_torch import models
+
+    def last(use_kernels, store, replay):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with moe_routes(store, replay):
+            logits, _ = models.prefill(params, prompts, cfg, cache_len,
+                                       last_only=True,
+                                       use_kernels=use_kernels)
+        torch.cuda.synchronize()
+        return logits[:, -1].float(), time.perf_counter() - t0
+
+    plain_routes, kernel_routes = [], []
+    lp, plain_s = last(False, plain_routes, False)
+    lk_free, kernel_s = last(True, kernel_routes, False)
+    lk, _ = last(True, plain_routes, True)
+    flips = sum(int((torch.sort(a.topi, -1).values
+                     != torch.sort(b.topi, -1).values).any(-1).sum())
+                for a, b in zip(plain_routes, kernel_routes))
+    scale = lp.abs().max().item()
+    tol = rel_tol * scale
+    err = (lk - lp).abs().max().item()
+    row = dict(kernel_prefill_wall_s=kernel_s, plain_prefill_wall_s=plain_s,
+               logits_finite=bool(torch.isfinite(lk_free).all()),
+               last_logits_max_abs_err=err,
+               free_running_max_abs_err=(lk_free - lp).abs().max().item(),
+               routed_tokens=sum(r.topi.shape[0] for r in plain_routes),
+               tokens_whose_experts_flipped=flips,
+               last_logits_scale=scale, rel_tol=rel_tol, tol=tol,
+               greedy_next_token_agrees=int(
+                   (lk.argmax(-1) == lp.argmax(-1)).sum()))
+    faults = [] if row["logits_finite"] else ["non-finite logits from the "
+                                              "kernel prefill"]
+    if err > tol:
+        faults.append(f"kernel prefill logits (plain routing replayed) "
+                      f"differ from the plain prefill by {err} > {tol}")
+    return row, faults
+
+
 def check_ids(res, cfg, B: int, new: int):
     toks = torch.tensor(res.tokens)
     if toks.shape != (B, new) or toks.min() < 0 \
@@ -748,9 +868,14 @@ def generate_main_path(arch: str, B: int, S: int, new: int, expect: dict):
     # before the PV product and forms a block of scan steps at once, the
     # kernels keep f32 and sum in another order; the layers' bf16
     # residuals carry that to the logits
-    row, faults = prefill_parity(params, cfg, prompts, S + new,
-                                 [k for k in ("flash_attention", "mamba_scan")
-                                  if expect[k]], 5e-2)
+    if cfg.moe is not None:
+        row, faults = moe_prefill_parity(params, cfg, prompts, S + new,
+                                         5e-2)
+    else:
+        row, faults = prefill_parity(
+            params, cfg, prompts, S + new,
+            [k for k in ("flash_attention", "mamba_scan") if expect[k]],
+            5e-2)
     emit("generate", arch=cfg.name, dtype=cfg.dtype, layers=cfg.num_layers,
          d_model=cfg.d_model, params=cfg.param_count(), batch=B, prompt=S,
          new_tokens=new, setup_s=setup_s, launches=launches,
@@ -1005,7 +1130,7 @@ def run_training(label: str, argv):
              requested_batches=hist.requested_batches[i],
              modes=hist.modes[i], pool_size=hist.pool_size[i],
              comm_events=hist.comm_events[i], wall_s=hist.wall[i],
-             device_ms=hist.phase_ms[i])
+             stats_probe=hist.stats_probe[i], device_ms=hist.phase_ms[i])
     final = pool.global_params
     finite = all(bool(torch.isfinite(v.float()).all())
                  for v in final.values())
@@ -1055,6 +1180,205 @@ def phase_train():
     run_training("microbatch", TRAIN_ARGV + [
         "--outer-steps", "2", "--stats-estimator", "microbatch"])
     return launches
+
+
+PROBE_ROWS, PROBE_SEQ = 64, 128
+STATS_NAMES = ("mean_norm2", "sigma2", "ip_var", "orth_var", "b")
+
+
+def phase_probe():
+    """The per-sample probe at the launcher's default cap: 64 rows of
+    MicroLlama-300M's gradient at full width in bf16 (seq 128), whose
+    (64, 304,636,928) f32 G (78 GB) does not fit the card.  It runs in
+    row chunks (``batching.per_sample_probe``), with the gradstats
+    counts set to 0 just before and read just after: one launch of each
+    kernel per chunk and sweep, and a peak under the card's memory.  The
+    plain version in the same chunks must agree within 1e-4 relative.
+    Then a probe of 8 rows, which fits: one pass against 3-row chunks on
+    the kernel route, within 1e-4 relative (the column sums add the
+    rows in the one-pass order; the gradients are recomputed)."""
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.core import batching
+    from repro_torch.kernels.gradstats import ops as gs_ops
+    from repro_torch.launch.train import build_loss_fn
+    from repro_torch.models import lm
+
+    cfg = get_config("microllama-300m")
+    params = lm.param_dict(models.init_params(cfg, 0))
+    loss_fn = build_loss_fn(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size,
+                                     (PROBE_ROWS, PROBE_SEQ), generator=gen,
+                                     device="cuda")}
+    D = sum(p.numel() for p in params.values())
+    total = torch.cuda.get_device_properties(0).total_memory
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gs_ops.colsum_launches = gs_ops.moments_launches = 0
+    t0 = time.perf_counter()
+    res = batching.per_sample_probe(loss_fn, params, batch, use_kernel=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"colsum": gs_ops.colsum_launches,
+                "moments": gs_ops.moments_launches}
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    plain = batching.per_sample_probe(loss_fn, params, batch,
+                                      use_kernel=False, rows=res.rows)
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    rec = {"kernel": [float(v) for v in res.stats],
+           "plain": [float(v) for v in plain.stats]}
+    small = {k: v[:8] for k, v in batch.items()}
+    one = batching.per_sample_probe(loss_fn, params, small, use_kernel=True)
+    three = batching.per_sample_probe(loss_fn, params, small,
+                                      use_kernel=True, rows=3)
+    small_rec = {"kernel": [float(v) for v in three.stats],
+                 "plain": [float(v) for v in one.stats]}
+    emit("probe", arch=cfg.name, dtype=cfg.dtype, rows=PROBE_ROWS,
+         seq=PROBE_SEQ, D=D, one_pass_G_bytes=4 * PROBE_ROWS * D,
+         card_bytes=total, rows_per_chunk=res.rows, chunks=res.chunks,
+         launches=launches, max_memory_allocated=peak, wall_s=wall,
+         plain_wall_s=plain_wall, stats_kernel=dict(zip(STATS_NAMES,
+                                                        rec["kernel"])),
+         stats_plain=dict(zip(STATS_NAMES, rec["plain"])),
+         stats_agree=stats_agree(rec),
+         small_one_pass=dict(zip(STATS_NAMES, small_rec["plain"])),
+         small_chunks_of_3=dict(zip(STATS_NAMES, small_rec["kernel"])),
+         small_agree=stats_agree(small_rec),
+         small_bit_identical=small_rec["kernel"] == small_rec["plain"])
+    faults = []
+    if res.chunks < 2:
+        faults.append(f"the 64-row probe must run in chunks: {res.chunks}")
+    if launches != {"colsum": res.chunks, "moments": res.chunks}:
+        faults.append(f"gradstats launches {launches}, expected one per "
+                      f"chunk and sweep ({res.chunks})")
+    if peak >= total:
+        faults.append(f"peak {peak} >= the card's {total}")
+    if not stats_agree(rec) or not stats_agree(small_rec):
+        faults.append("chunked statistics disagree")
+    if (one.chunks, three.chunks) != (1, 3):
+        faults.append(f"8-row probe ran {one.chunks} / {three.chunks} "
+                      f"chunks, expected 1 / 3")
+    if faults:
+        raise AssertionError(f"probe: {faults}")
+    del params, batch
+    torch.cuda.empty_cache()
+    return dict(launches, chunks=res.chunks, rows=res.rows)
+
+
+def run_training_family(label: str, argv):
+    """One ``launch.train.run`` of a non-dense family on the card, with
+    the launch counts set to 0 just before and read just after.  Fails
+    unless the losses and final parameters are finite, each gradstats
+    kernel launched once per probe chunk and sweep, at least one probe
+    ran in row chunks, and neither flash nor the scan kernel launched
+    (training runs plain attention and the associative scan)."""
+    from repro_torch.launch import train
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    pool, hist, cfg = train.run(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    for i, t in enumerate(hist.outer_step):
+        emit("train_round", run=label, round=t, loss=hist.loss[i],
+             requested_batches=hist.requested_batches[i],
+             modes=hist.modes[i], stats_probe=hist.stats_probe[i],
+             wall_s=hist.wall[i], device_ms=hist.phase_ms[i])
+    finite = all(bool(torch.isfinite(v.float()).all())
+                 for v in pool.global_params.values())
+    probes = [p for ps in hist.stats_probe for p in ps]
+    chunks = sum(c for _, _, c in probes)
+    emit("train", run=label, arch=cfg.name, dtype=cfg.dtype,
+         layers=cfg.num_layers, d_model=cfg.d_model,
+         params=cfg.param_count(), argv=argv, wall_s=wall,
+         max_memory_allocated=peak, losses=hist.loss, launches=launches,
+         probes=probes, expected_gradstats_launches=chunks,
+         final_params_finite=finite)
+    faults = []
+    if not all(math.isfinite(x) for x in hist.loss) or not finite:
+        faults.append("non-finite loss or parameters")
+    if not (launches["gradstats_colsum"] == launches["gradstats_moments"]
+            == chunks > 0):
+        faults.append(f"gradstats launches {launches} against {chunks} "
+                      f"probe chunks")
+    if not any(c > 1 for _, _, c in probes):
+        faults.append(f"no probe ran in row chunks: {probes}")
+    if launches["flash_attention"] or launches["mamba_scan"]:
+        faults.append(f"training launched a forward-only kernel: {launches}")
+    if faults:
+        raise AssertionError(f"{label}: {faults}")
+    del pool, hist
+    torch.cuda.empty_cache()
+    return {"colsum": launches["gradstats_colsum"],
+            "moments": launches["gradstats_moments"], "chunks": chunks}
+
+
+# hymba-1.5b at full width; falcon-mamba-7b cut to 8 of its 64 layers
+# (widths unchanged: 7.27 B parameters with f32 AdamW state do not fit one
+# card).  One trainer of two workers; seq 32 keeps the associative
+# scan's saved (B, S, di, n) f32 passes small.  Switch mode is off, so
+# a step never accumulates beyond max_batch (an accumulating step holds
+# two more f32 copies of the gradients beside AdamW's out-of-place
+# update, more than the card has left at full width); the probes hold 4
+# rows of hymba's 1.66 B and 8 rows of the cut falcon's 1.38 B
+# parameters, more than the card has free beside the workers.
+FAMILY_TRAIN = [
+    ("hymba-1.5b", ["--arch", "hymba-1.5b", "--seq-len", "32",
+                    "--trainers", "1", "--workers", "2", "--inner-steps",
+                    "2", "--outer-steps", "3", "--initial-batch", "2",
+                    "--max-batch", "2", "--no-switch"]),
+    ("falcon-mamba-7b", ["--arch", "falcon-mamba-7b", "--num-layers", "8",
+                         "--seq-len", "32", "--trainers", "1", "--workers",
+                         "2", "--inner-steps", "2", "--outer-steps", "3",
+                         "--initial-batch", "8", "--max-batch", "8",
+                         "--no-switch"]),
+]
+
+
+def phase_train_families():
+    """AdLoCo on the hybrid and SSM families through the launcher, bf16
+    with f32 AdamW state.  Returns the gradstats launches per run."""
+    return {label: run_training_family(label, argv)
+            for label, argv in FAMILY_TRAIN}
+
+
+# (arch, prompts, prompt length, new tokens): every dense config the
+# port runs beside microllama, and the MoE family; gemma3-4b's prompts
+# pass its 1024-token window
+FAMILY_SERVE = [("qwen3-0.6b", 4, 512, 32), ("gemma3-4b", 2, 2048, 16),
+                ("stablelm-1.6b", 4, 512, 32),
+                ("phi3-medium-14b", 2, 512, 16),
+                ("deepseek-moe-16b", 2, 512, 16)]
+
+
+def phase_generate_families():
+    """``serve.generate`` on each of FAMILY_SERVE at full width in bf16,
+    one model at a time, each freed before the next: flash on the
+    tensor-core path once per layer, the kernel prefill within 5% of the
+    plain prefill's largest logit, ids in range (``generate_main_path``).
+    No server equality for MoE: capacity couples a batch's rows in the
+    reference too.  Returns the launch counts per model."""
+    from repro_torch.configs import get_config
+
+    out = {}
+    for arch, B, S, new in FAMILY_SERVE:
+        n = get_config(arch).num_layers
+        launches, held = generate_main_path(
+            arch, B, S, new, {"flash_attention": n, "flash_attention_tc": n,
+                              "flash_attention_fma": 0, "mamba_scan": 0})
+        del held
+        torch.cuda.empty_cache()
+        out[arch] = launches
+    return out
 
 
 # the links between pods in the async cluster run: one 400 Gb/s NDR
@@ -1318,6 +1642,11 @@ def main() -> int:
     timed("server_ssm", phase_server, "falcon-mamba-7b", "mamba_scan")
     train_launches = timed("train", phase_train)
     cluster_launches = timed("cluster", phase_cluster)
+    probe_launches = timed("probe", phase_probe)
+    family_train = timed("train_families", phase_train_families)
+    family_serve = timed("generate_families", phase_generate_families)
+    gemma = {("global" if r["window"] is None else f"window_{r['window']}"): r
+             for r in flash_rows if r["shape"][4] == 256}
     kernels = [{
         "name": "flash_attention", "route": "cuda", "source": FLASH_SRC,
         "replaces": FLASH_TPU, "launches": launches["flash_attention"],
@@ -1328,6 +1657,12 @@ def main() -> int:
         "hybrid_ms": {("global" if r["window"] is None
                        else f"window_{r['window']}"): r["kernel_ms"]
                       for r in flash_rows if r["shape"][2] == 25},
+        "launches_families": {a: n["flash_attention_tc"]
+                              for a, n in family_serve.items()},
+        "hd256": {k: {f: r[f] for f in ("shape", "max_abs_err", "kernel_ms",
+                                        "plain_ms", "bound_ms", "bound_by",
+                                        "library_ms")}
+                  for k, r in gemma.items()},
         "max_abs_err": flash["max_abs_err"], "ms": flash["kernel_ms"],
         "plain_ms": flash["plain_ms"], "bound_ms": flash["bound_ms"],
         "bound_by": flash["bound_by"], "library_ms": flash["library_ms"],
@@ -1336,6 +1671,9 @@ def main() -> int:
         "replaces": COLSUM_TPU, "launches": train_launches["colsum"],
         "launches_cluster": {run: n["colsum"]
                              for run, n in cluster_launches.items()},
+        "launches_probe_64": probe_launches["colsum"],
+        "launches_train_families": {a: n["colsum"]
+                                    for a, n in family_train.items()},
         "max_abs_err": gs["gbar"], "ms": gs["colsum_ms"],
         "plain_ms": gs["plain_colsum_ms"], "bound_ms": gs["colsum_bound_ms"],
         "bound_by": gs["colsum_bound_by"],
@@ -1346,6 +1684,9 @@ def main() -> int:
         "launches": train_launches["moments"],
         "launches_cluster": {run: n["moments"]
                              for run, n in cluster_launches.items()},
+        "launches_probe_64": probe_launches["moments"],
+        "launches_train_families": {a: n["moments"]
+                                    for a, n in family_train.items()},
         "max_abs_err": max(gs["s"], gs["d"], gs["n2"]),
         "max_rel_err": max(gs["s_rel"], gs["d_rel"], gs["n2_rel"]),
         "ms": gs["moments_ms"], "plain_ms": gs["plain_moments_ms"],

@@ -7,10 +7,11 @@ copy.  numpy has no bfloat16: bf16 arrays arrive as ml_dtypes' bfloat16
 (read through their 16-bit pattern) and leave as float32, which holds
 every bf16 value exactly.
 
-Leaves are cast to the model dtype, except the Mamba leaves that the
-JAX init keeps in f32 in any model (``layers.MAMBA_F32_LEAVES``: dt_b,
-A_log, D), which stay f32 both ways.  The layer trees of every family
-the port runs (dense, ssm, hybrid) convert with the same walk.
+Leaves are cast to the model dtype, except those that the JAX init
+keeps in f32 in any model, which stay f32 both ways: the Mamba leaves
+(``layers.MAMBA_F32_LEAVES``: dt_b, A_log, D) and the MoE router
+(``layers.MOE_F32_LEAVES``).  The layer trees of every family the port
+runs (dense, moe, ssm, hybrid) convert with the same walk.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import MAMBA_F32_LEAVES
+from repro_torch.models.layers import MAMBA_F32_LEAVES, MOE_F32_LEAVES
 from repro_torch.models.lm import DecoderLM, _dtype, _nest
 
 
@@ -35,8 +36,11 @@ def _to_tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
     return t.to(device=device, dtype=dtype)
 
 
+_F32_LEAVES = {"mamba": MAMBA_F32_LEAVES, "moe": MOE_F32_LEAVES}
+
+
 def _leaf_dtype(path, dtype):
-    if len(path) >= 2 and path[-2] == "mamba" and path[-1] in MAMBA_F32_LEAVES:
+    if len(path) >= 2 and path[-1] in _F32_LEAVES.get(path[-2], ()):
         return torch.float32
     return dtype
 

@@ -21,7 +21,11 @@ merge read it afterwards).
 Where the port adds to the JAX package: on a CUDA device,
 :class:`PhaseClock` records CUDA events around each round's phases
 (``inner``, ``stats_grads``, ``stats_reduce``, ``outer``, ``merge``) and
-``History.phase_ms`` keeps their device times in ms per round.
+``History.phase_ms`` keeps their device times in ms per round.  The
+per-sample probe runs in row chunks where its (B, D) f32 matrix does
+not fit the card (``batching.per_sample_probe``); ``History.stats_probe``
+records each round's probes as (B, rows held at once, chunks per
+sweep).
 """
 from __future__ import annotations
 
@@ -65,6 +69,9 @@ class History:
     sim_time: List[float] = field(default_factory=list)
     # device ms per phase per round (CUDA events; empty dicts on the CPU)
     phase_ms: List[Dict[str, float]] = field(default_factory=list)
+    # per round, each per-sample probe run as [B, rows, chunks]
+    # (rows == B, chunks == 1: one pass)
+    stats_probe: List[List[List[int]]] = field(default_factory=list)
 
     def as_dict(self) -> Dict[str, Any]:
         return self.__dict__.copy()
@@ -210,6 +217,8 @@ class TrainerRound:
         self.outer_step = make_outer_step(self.outer_opt,
                                           delay_aware=self._delay_aware)
         self.clock = PhaseClock()
+        # [B, rows, chunks] of each per-sample probe since the last drain
+        self.probes: List[List[int]] = []
         self._n_params: Optional[int] = None
         self._predictors: Dict[int, batching.BatchGrowthPredictor] = {}
 
@@ -305,18 +314,30 @@ class TrainerRound:
         dev = _device(x_start)
         worker_params: List[Any] = [None] * M
         worker_grads, last_losses = [], []
+        # the statistics read the workers' last gradients only on these
+        # paths; elsewhere none is kept past its step (device memory)
+        keep_grads = acfg.adaptive and (
+            stats_reduce is not None
+            or (acfg.stats_estimator == "microbatch" and len(idxs) >= 2))
         with self.clock.span("inner", dev):
             for m in idxs:
                 wp = (worker_starts[m] if worker_starts is not None
                       else x_start)
                 opt_m = tr.inner_opt_states[m]
+                # the slot gives up the old state while the worker's
+                # steps build new ones: one optimizer state per worker
+                # fewer held at a time
+                tr.inner_opt_states[m] = None
                 stream = tr.streams[m % len(tr.streams)]
                 for _ in range(H):
                     batch = stream.next_batch(plan.effective_batch)
                     batch = reshape_for_plan(batch, plan)
                     wp, opt_m, loss, grads = step_fn(wp, opt_m, batch)
+                    if not keep_grads:
+                        grads = None    # freed before the next step
                 worker_params[m] = wp
-                worker_grads.append(grads)
+                if keep_grads:
+                    worker_grads.append(grads)
                 tr.inner_opt_states[m] = opt_m
                 last_losses.append(float(loss))
 
@@ -360,13 +381,12 @@ class TrainerRound:
                 probe_b = max(4, min(acfg.stats_probe_size,
                                      plan.effective_batch))
                 probe = tr.streams[0].next_batch(probe_b)
-                with self.clock.span("stats_grads", dev):
-                    G = batching.per_sample_grads(
-                        self.loss_fn, worker_params[idxs[0]], probe)
-                with self.clock.span("stats_reduce", dev):
-                    st = batching.stats_from_matrix(
-                        G, use_kernel=acfg.stats_use_kernel)
-                del G
+                res = batching.per_sample_probe(
+                    self.loss_fn, worker_params[idxs[0]], probe,
+                    use_kernel=acfg.stats_use_kernel,
+                    span=lambda name: self.clock.span(name, dev))
+                st = res.stats
+                self.probes.append([probe_b, res.rows, res.chunks])
             if defer_stats:
                 if stats_request is None:
                     stats_request = {"st": st}
@@ -498,6 +518,7 @@ def train_adloco(loss_fn: Callable, init_params_list: List[Any],
             samples_total += out.samples
             # ---- outer sync (Alg 3 lines 40–44) ----------------------
             rnd.outer(tr, out.worker_params, comms=pool.comms, step=t)
+            out = None   # the workers' params go before the next round
 
         hist.outer_step.append(t)
         hist.loss.append(sum(round_losses) / len(round_losses))
@@ -509,6 +530,8 @@ def train_adloco(loss_fn: Callable, init_params_list: List[Any],
         hist.samples.append(samples_total)
         hist.modes.append(modes)
         hist.phase_ms.append(rnd.clock.collect())
+        hist.stats_probe.append(rnd.probes[:])
+        rnd.probes.clear()
         hist.wall.append(time.time() - t0)
         record_eval(hist, pool, eval_fn)
         if verbose:

@@ -29,11 +29,20 @@ all-reduce, so every rank derives the identical batch decision.
 All statistics are f32.  Gradient matrices are built one row at a time
 into a preallocated f32 matrix; the column order of a row is the order
 of the parameter dict, which no statistic depends on.
+
+Where the port adds to the JAX package: a per-sample probe whose (B, D)
+f32 matrix does not fit the card runs in row chunks
+(``per_sample_probe``), two sweeps that recompute each chunk's
+gradients: the first adds the chunks' column sums into one f32 mean,
+the second takes each chunk's (s, d) against it.  Memory is R x D + D
+floats instead of B x D; the statistics are the same statistics (the
+kernel route's column sums add the rows in the one-pass order).
 """
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List, NamedTuple, Sequence
+from contextlib import nullcontext
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -64,6 +73,11 @@ def stats_from_matrix(G: torch.Tensor, *, use_kernel: bool = False
     else:
         from repro_torch.kernels.gradstats.ref import gradstats_reduce_ref
         s, d, gbar_n2, b = gradstats_reduce_ref(G)
+    return _stats(s, d, gbar_n2, b)
+
+
+def _stats(s, d, gbar_n2, b) -> GradStats:
+    """GradStats from the per-row (s, d), n2 and the f32 row count."""
     bm1 = torch.clamp(b - 1.0, min=1.0)
     sigma2 = (torch.sum(s) - b * gbar_n2) / bm1
     ip_var = torch.sum(torch.square(d - gbar_n2)) / bm1
@@ -192,13 +206,17 @@ def flatten_grads(tree: Dict[str, torch.Tensor]) -> torch.Tensor:
     return G
 
 
-def per_sample_grads(loss_fn: Callable, params, batch) -> torch.Tensor:
+def per_sample_grads(loss_fn: Callable, params, batch,
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(B, D) f32 matrix whose row i is the gradient of sample i as a
-    batch of one (JAX's vmap of grad; here a loop, one row at a time)."""
+    batch of one (JAX's vmap of grad; here a loop, one row at a time).
+    ``out``: an f32 buffer of at least B rows to write into (its first B
+    rows are returned)."""
     B = next(iter(batch.values())).shape[0]
     D = sum(p.numel() for p in params.values())
     dev = next(iter(params.values())).device
-    G = torch.empty((B, D), dtype=F32, device=dev)
+    G = (torch.empty((B, D), dtype=F32, device=dev) if out is None
+         else out[:B])
     for i in range(B):
         sample = {k: v[i:i + 1] for k, v in batch.items()}
         _, _, grads = value_and_grad(loss_fn, params, sample)
@@ -206,11 +224,112 @@ def per_sample_grads(loss_fn: Callable, params, batch) -> torch.Tensor:
     return G
 
 
+# Device memory a one-pass probe leaves free beside G: the per-sample
+# backward (activations, a sample's gradients in the params' dtype) and
+# the allocator's slack.  Two more rows of G are added to it.
+PROBE_MARGIN_BYTES = 8 * 2 ** 30
+
+
+def probe_rows(B: int, D: int, device) -> int:
+    """Rows of the per-sample matrix to hold at once: all ``B`` when the
+    (B, D) f32 matrix fits the card's free memory less
+    ``PROBE_MARGIN_BYTES`` and two rows; else as many rows as fit, at
+    least 1.  Always ``B`` off the card.  Free memory is the driver's;
+    where that is short, it is read again after the caching allocator
+    has returned its unused segments (a cached byte inside a segment
+    that still holds a live tensor cannot serve one large request, so
+    cached bytes are not counted)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return B
+    row = 4 * D
+
+    def budget():
+        return torch.cuda.mem_get_info(device)[0] - PROBE_MARGIN_BYTES \
+            - 2 * row
+
+    if B * row <= budget():
+        return B
+    torch.cuda.empty_cache()
+    b = budget()
+    return B if B * row <= b else max(1, b // row)
+
+
+class ProbeStats(NamedTuple):
+    """A per-sample probe's statistics and how it ran."""
+    stats: GradStats
+    rows: int        # rows of G held at once (B: one pass)
+    chunks: int      # row chunks per sweep (1: one pass)
+
+
+def per_sample_probe(loss_fn: Callable, params, batch, *,
+                     use_kernel: bool = False, rows: Optional[int] = None,
+                     span: Optional[Callable] = None) -> ProbeStats:
+    """Exact path: per-sample gradients, then the (B, D) reduction.
+
+    ``rows`` caps the rows of G held at once (default: ``probe_rows``,
+    i.e. one pass wherever G fits).  At R < B rows the probe runs in
+    ceil(B / R) row chunks, twice: the first sweep adds each chunk's
+    column sums into one f32 accumulator (divided by B on the last
+    chunk), the second recomputes each chunk's gradients and takes its
+    (s, d) against that mean; n2 comes from the first chunk's moments.
+    One (R, D) buffer serves every chunk of both sweeps, and it and the
+    (D,) accumulator are allocated before any gradient work, so the
+    probe's large allocations cannot be split by the backward passes'
+    cached blocks.
+    ``span(name)`` (a context manager factory, e.g. the round's
+    ``PhaseClock``) wraps gradient work as ``stats_grads`` and the
+    reductions as ``stats_reduce``."""
+    span = span or (lambda name: nullcontext())
+    B = next(iter(batch.values())).shape[0]
+    D = sum(p.numel() for p in params.values())
+    dev = next(iter(params.values())).device
+    R = probe_rows(B, D, dev) if rows is None else max(1, min(int(rows), B))
+    if R >= B:
+        with span("stats_grads"):
+            G = per_sample_grads(loss_fn, params, batch)
+        with span("stats_reduce"):
+            st = stats_from_matrix(G, use_kernel=use_kernel)
+        return ProbeStats(st, B, 1)
+
+    from repro_torch.kernels.gradstats import ops, ref
+    colsum = ops.colsum_chunk if use_kernel else ref.colsum_chunk_ref
+    moments = ops.moments_chunk if use_kernel else ref.moments_ref
+    bounds = [(lo, min(lo + R, B)) for lo in range(0, B, R)]
+
+    buf = torch.empty((R, D), dtype=F32, device=dev)
+    gbar = torch.empty((D,), dtype=F32, device=dev)
+
+    def grads(lo, hi):
+        with span("stats_grads"):
+            return per_sample_grads(loss_fn, params,
+                                    {k: v[lo:hi] for k, v in batch.items()},
+                                    out=buf)
+
+    for lo, hi in bounds:
+        G = grads(lo, hi)
+        with span("stats_reduce"):
+            colsum(G, gbar, accumulate=lo > 0,
+                   divisor=float(B) if hi == B else None)
+    s, d, n2 = [], [], None
+    for lo, hi in bounds:
+        G = grads(lo, hi)
+        with span("stats_reduce"):
+            s_c, d_c, n2_c = moments(G, gbar)
+        s.append(s_c)
+        d.append(d_c)
+        n2 = n2_c if n2 is None else n2
+    b = torch.tensor(float(B), device=dev)
+    return ProbeStats(_stats(torch.cat(s), torch.cat(d), n2, b), R,
+                      len(bounds))
+
+
 def per_sample_stats(loss_fn: Callable, params, batch, *,
                      use_kernel: bool = False) -> GradStats:
-    """Exact path: per-sample gradients, then the (B, D) reduction."""
-    return stats_from_matrix(per_sample_grads(loss_fn, params, batch),
-                             use_kernel=use_kernel)
+    """Exact path: per-sample gradients, then the (B, D) reduction (in
+    row chunks where G does not fit; see ``per_sample_probe``)."""
+    return per_sample_probe(loss_fn, params, batch,
+                            use_kernel=use_kernel).stats
 
 
 # ------------------------------------------------------------------

@@ -48,8 +48,8 @@ def make_inner_step(loss_fn: Callable, inner_opt: optim.Optimizer,
         mb = {k: v[0] for k, v in batch.items()}
         loss, _, grads = value_and_grad(loss_fn, params, mb)
         updates, opt_state = inner_opt.update(grads, opt_state, params)
-        return (optim.apply_updates(params, updates), opt_state, loss,
-                grads)
+        return (optim.apply_updates(params, updates, consume=True),
+                opt_state, loss, grads)
 
     def step(params, opt_state, batch):
         g_sum = {k: torch.zeros(p.shape, dtype=torch.float32,
@@ -63,9 +63,10 @@ def make_inner_step(loss_fn: Callable, inner_opt: optim.Optimizer,
             l_sum = l_sum + loss
         inv = 1.0 / accum_steps
         grads = {k: g * inv for k, g in g_sum.items()}
+        del g_sum                   # freed before the update (memory)
         updates, opt_state = inner_opt.update(grads, opt_state, params)
-        return (optim.apply_updates(params, updates), opt_state,
-                l_sum * inv, grads)
+        return (optim.apply_updates(params, updates, consume=True),
+                opt_state, l_sum * inv, grads)
 
     return step_noaccum if accum_steps == 1 else step
 

@@ -25,17 +25,20 @@
 //    causal, bf16: 10.5 MB against 2.2 GFLOP, bytes-bound, 3.13 us;
 //  * hymba-1.5b prefill (2, 1536, 25, 5, 64), bf16, global layers:
 //    15.1 GFLOP, operations-bound, 15.3 us; its local layers (window
-//    1024): 13.4 GFLOP, 13.6 us.
+//    1024): 13.4 GFLOP, 13.6 us;
+//  * gemma3-4b prefill (2, 2048, 8, 4, 256), bf16, global layers:
+//    34.4 GFLOP against 50.3 MB, operations-bound, 34.8 us; its local
+//    layers (window 1024): 25.8 GFLOP, 26.1 us.
 // Both products are matrix products, so the tensor cores set the bound
 // at the longer shapes, and f32 FMAs on the CUDA cores (67 TFLOP/s)
 // cannot come near it.
 //
 // Two kernels:
 //
-// 1. bf16 with hd % 16 == 0 and hd <= 128 (every head dim of the
-//    repository's configs but gemma3-4b's 256): both products on the
-//    tensor cores with `wgmma`.  One CTA of one warpgroup (128 threads)
-//    per (batch, q head, 64-query tile).
+// 1. bf16 with hd % 16 == 0 and hd <= 256 (every head dim of the
+//    repository's attention configs, gemma3-4b's 256 included): both
+//    products on the tensor cores with `wgmma`.  One CTA of one
+//    warpgroup (128 threads) per (batch, q head, 64-query tile).
 //    * Loads: TMA, issued by one elected thread, into 128-byte-swizzled
 //      shared memory, the layout the wgmma descriptors read.  The tensor
 //      maps are 4-d over (hd, heads, S, B) with boxes of (64, 1, 64, 1),
@@ -59,6 +62,12 @@
 //      accumulator layout of the first product is the A-fragment layout
 //      of the second.  V, stored (key, hd) with hd contiguous, is
 //      MN-major for operand B and is read through the transpose bit.
+//      At hd 256 O's 256 columns are two m64n128 products on the two
+//      halves of V's tile, into the two halves of one 128-register
+//      accumulator array (the layout of one m64n256 product), so S's
+//      32 registers and P's 16 fit beside it under 255 a thread.
+//      Shared memory there: Q 32 KB and two stages of K + V at 64 KB
+//      each, 160 KB, so one CTA per SM.
 //    * Epilogue: divide by l, round to bf16, store rows < S.
 //    Within the warpgroup the two products and the softmax run one after
 //    another; the CTAs resident on an SM (four at hd 64) overlap each
@@ -71,11 +80,12 @@
 //    query, so the library links nothing beyond the runtime.
 //
 // 2. Everything else the wrapper takes (f32, and bf16 with hd % 8 == 0
-//    but not % 16): the first port's kernel, both products as f32 FMAs
-//    on the CUDA cores.  One block of 256 threads per (batch, q head,
-//    64-query tile), four threads per query row (a quarter of its dims
-//    each, partial dot products met in two warp shuffles), K/V tiles of
-//    32 keys staged in shared memory as f32.  f32 stays off the tensor
+//    but not % 16, hd <= 256): the first port's kernel, both products
+//    as f32 FMAs on the CUDA cores.  One block of 256 threads per
+//    (batch, q head, 64-query tile), four threads per query row (a
+//    quarter of its dims each, partial dot products met in two warp
+//    shuffles), K/V tiles of 32 keys (16 at hd > 128, so the two f32
+//    tiles stay in 48 KB of static shared memory) staged as f32.  f32 stays off the tensor
 //    cores on purpose: TF32 keeps about three digits, and the f32
 //    serving paths are held to 1e-4 of their plain versions.
 //
@@ -111,15 +121,17 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-// HDP: head_dim padded up to 32, 64 or 128; dims in [hd, HDP) are zero.
+// HDP: head_dim padded up to 32, 64, 128 or 256; dims in [hd, HDP)
+// are zero.  BKH keys per tile: 2 * BKH * HDP f32 fit 48 KB.
 template <typename T, int HDP>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, int S, int H,
                  int Hk, int hd, int causal, int window, float scale) {
   constexpr int NC = HDP / 16;         // float4 chunks per thread
-  __shared__ __align__(16) float Ks[BK][HDP];
-  __shared__ __align__(16) float Vs[BK][HDP];
+  constexpr int BKH = HDP > 128 ? BK / 2 : BK;
+  __shared__ __align__(16) float Ks[BKH][HDP];
+  __shared__ __align__(16) float Vs[BKH][HDP];
 
   const int tid = threadIdx.x;
   const int row = tid / LANES;
@@ -148,7 +160,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int k_end = causal ? min(S, q0 + BQ) : S;
   int k_begin = 0;
   const long long lo = (long long)q0 - (long long)window + 1;
-  if (lo > 0) k_begin = (int)(lo / BK) * BK;
+  if (lo > 0) k_begin = (int)(lo / BKH) * BKH;
 
   const size_t kv_row = (size_t)Hk * hd;
   const T* kb = k + ((size_t)b * S * Hk + hk) * hd;
@@ -157,8 +169,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   float m_i = -INFINITY;
   float l_i = 0.f;
-  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
-    for (int e = tid; e < BK * HDP; e += THREADS) {
+  for (int k0 = k_begin; k0 < k_end; k0 += BKH) {
+    for (int e = tid; e < BKH * HDP; e += THREADS) {
       const int j = e / HDP;
       const int d = e % HDP;
       const int kpos = k0 + j;
@@ -173,9 +185,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
 
-    float s[BK];
+    float s[BKH];
 #pragma unroll
-    for (int j = 0; j < BK; ++j) {
+    for (int j = 0; j < BKH; ++j) {
       float part = 0.f;
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
@@ -196,7 +208,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     float m_t = -INFINITY;
 #pragma unroll
-    for (int j = 0; j < BK; ++j) m_t = fmaxf(m_t, s[j]);
+    for (int j = 0; j < BKH; ++j) m_t = fmaxf(m_t, s[j]);
     const float m_new = fmaxf(m_i, m_t);
     if (m_new != -INFINITY) {          // else: no visible key yet
       const float alpha = expf(m_i - m_new);
@@ -204,7 +216,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < 4 * NC; ++i) acc[i] *= alpha;
 #pragma unroll
-      for (int j = 0; j < BK; ++j) {
+      for (int j = 0; j < BKH; ++j) {
         const float p = expf(s[j] - m_new);    // masked: exp(-inf) = 0
         l_i += p;
 #pragma unroll
@@ -260,6 +272,9 @@ int dispatch_hd(const void* q, const void* k, const void* v, void* o,
                          scale, stream);
   if (hd <= 128)
     return launch<T, 128>(q, k, v, o, B, S, H, Hk, hd, causal, window,
+                          scale, stream);
+  if (hd <= 256)
+    return launch<T, 256>(q, k, v, o, B, S, H, Hk, hd, causal, window,
                           scale, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -392,10 +407,13 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
 }
 
 // D (64 x 128, f32) += A (64 x 16, bf16 in registers) * B (16 x 128,
-// shared, MN-major: the transpose bit is set).
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+// shared, MN-major: the transpose bit is set).  D is the 64 registers
+// d[OFF .. OFF + 63] of the caller's accumulator array.
+template <int OFF, int N>
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[N],
                                               const uint32_t (&a)[4],
                                               uint64_t db) {
+  static_assert(OFF + 64 <= N, "accumulator out of range");
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
@@ -408,8 +426,8 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       " %48, %49, %50, %51, %52, %53, %54, %55,"
       " %56, %57, %58, %59, %60, %61, %62, %63}, "
       "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40),
-        ACC8(48), ACC8(56)
+      : ACC8(OFF), ACC8(OFF + 8), ACC8(OFF + 16), ACC8(OFF + 24),
+        ACC8(OFF + 32), ACC8(OFF + 40), ACC8(OFF + 48), ACC8(OFF + 56)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
@@ -431,7 +449,8 @@ __device__ __forceinline__ void load_kv(const CUtensorMap* kmap,
   }
 }
 
-// HDP: hd rounded up to 64 or 128 (the swizzled column blocks of a row).
+// HDP: hd rounded up to 64, 128 or 256 (the swizzled column blocks of a
+// row).
 // Shared memory, 1024-byte aligned: Q (HDP/64 blocks of 64 rows x 128
 // bytes), then per stage K and V (HDP/64 blocks of BK rows x 128 bytes
 // each), then 1 + STAGES mbarriers (Q, then a stage's).
@@ -591,16 +610,24 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
 
     // O += P V: BK / 16 steps of k16 along the keys.  V's descriptor:
     // the next 8 keys 1024 bytes on (SBO), the next 64 dims of hd one
-    // column block on (LBO).
+    // column block on (LBO); at hd 256 the second half of O's columns
+    // starts two column blocks on.
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
       const uint64_t dv =
           sw128_desc(sv + kk * 16 * ROW_BYTES, BK * ROW_BYTES, 1024);
-      if constexpr (HDP == 64)
+      if constexpr (HDP == 64) {
         wgmma_rs_n64(oacc, pa[kk], dv);
-      else
-        wgmma_rs_n128(oacc, pa[kk], dv);
+      } else if constexpr (HDP == 128) {
+        wgmma_rs_n128<0>(oacc, pa[kk], dv);
+      } else {
+        const uint64_t dv2 = sw128_desc(
+            sv + 2 * BK * ROW_BYTES + kk * 16 * ROW_BYTES, BK * ROW_BYTES,
+            1024);
+        wgmma_rs_n128<0>(oacc, pa[kk], dv);
+        wgmma_rs_n128<64>(oacc, pa[kk], dv2);
+      }
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -704,8 +731,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 }  // namespace tc_path
 
 // q (B,S,H,hd), k/v (B,S,Hk,hd), o (B,S,H,hd), all contiguous, one
-// dtype: 0 = float32, 1 = bfloat16.  bf16 with hd % 16 == 0 and
-// hd <= 128 runs the tensor-core kernel (16-byte aligned pointers);
+// dtype: 0 = float32, 1 = bfloat16; hd % 8 == 0 and hd <= 256.  bf16
+// with hd % 16 == 0 runs the tensor-core kernel (16-byte aligned pointers);
 // every other input the FMA kernel (the same rule as
 // kernel.py's `choose_path`).  Launches on `stream`, allocates nothing
 // on the device, returns cudaGetLastError() of the launch.
@@ -717,13 +744,16 @@ extern "C" int repro_flash_attention_fwd(const void* q, const void* k,
                                          void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B <= 0 || S <= 0 || H <= 0 || Hk <= 0 || H % Hk != 0 || hd <= 0 ||
-      hd % 8 != 0 || hd > 128)
+      hd % 8 != 0 || hd > 256)
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 1 && hd % 16 == 0) {
     if (hd <= 64)
       return tc_path::launch<64>(q, k, v, o, B, S, H, Hk, hd, causal,
                                  window, scale, st);
-    return tc_path::launch<128>(q, k, v, o, B, S, H, Hk, hd, causal, window,
+    if (hd <= 128)
+      return tc_path::launch<128>(q, k, v, o, B, S, H, Hk, hd, causal,
+                                  window, scale, st);
+    return tc_path::launch<256>(q, k, v, o, B, S, H, Hk, hd, causal, window,
                                 scale, st);
   }
   if (dtype == 0)

@@ -6,6 +6,10 @@
 //
 //   `_colsum_kernel`  -> repro_gradstats_colsum:
 //        gbar_j = (1/B) * sum_i G_ij
+//     with an accumulate form for G streamed in row chunks:
+//        acc_j = acc_j + sum_i G_ij   (divided by the whole B on the
+//        last chunk), so a chunked sum adds the rows in the same order
+//        as one pass and gives the same bits.
 //   `_moments_kernel` -> repro_gradstats_moments:
 //        s_i = sum_j G_ij^2,  d_i = sum_j G_ij * gbar_j,  n2 = sum_j gbar_j^2
 //
@@ -29,7 +33,8 @@
 // Design:
 //  * colsum: one thread per column; a warp reads 32 neighbouring
 //    columns of a row (coalesced), and each thread adds its column over
-//    the B rows in order, in an f32 register.
+//    the B rows in order, in an f32 register, starting from 0 or (the
+//    accumulate form) from the column's running sum.
 //  * moments: one block of 256 threads per chunk of 2048 columns; each
 //    thread keeps its 8 gbar values in registers (columns tid + 256*c,
 //    so each load of the warp is coalesced), reuses them for all B rows,
@@ -93,17 +98,18 @@ __device__ __forceinline__ void block_sum2(float& a, float& b, float* red) {
   __syncthreads();
 }
 
+// divisor > 0 divides the sum by it; divisor == 0 stores the sum.
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 colsum_kernel(const T* __restrict__ G, float* __restrict__ gbar, int64_t B,
-              int64_t D) {
+              int64_t D, int accumulate, float divisor) {
   const int64_t j = (int64_t)blockIdx.x * THREADS + threadIdx.x;
   if (j >= D) return;
   const T* col = G + j;
-  float acc = 0.f;
+  float acc = accumulate ? gbar[j] : 0.f;
 #pragma unroll 8
   for (int64_t i = 0; i < B; ++i) acc += to_f(col[i * D]);
-  gbar[j] = acc / (float)B;
+  gbar[j] = divisor > 0.f ? acc / divisor : acc;
 }
 
 // Partials: ps, pd are (B, nblk) row-major, pn2 is (nblk,).
@@ -182,11 +188,12 @@ bool bad_shape(int64_t B, int64_t D) {
 }
 
 template <typename T>
-int colsum(const void* G, void* gbar, int64_t B, int64_t D,
-           cudaStream_t st) {
+int colsum(const void* G, void* gbar, int64_t B, int64_t D, int accumulate,
+           float divisor, cudaStream_t st) {
   const unsigned grid = (unsigned)((D + THREADS - 1) / THREADS);
   colsum_kernel<T><<<grid, THREADS, 0, st>>>(
-      static_cast<const T*>(G), static_cast<float*>(gbar), B, D);
+      static_cast<const T*>(G), static_cast<float*>(gbar), B, D, accumulate,
+      divisor);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -217,14 +224,21 @@ extern "C" int64_t repro_gradstats_scratch_floats(int64_t B, int64_t D) {
   return (2 * B + 1) * moments_blocks(D);
 }
 
-// G (B, D) contiguous, dtype 0 = float32, 1 = bfloat16 -> gbar (D,) f32.
-// Launches on `stream`, allocates nothing, returns cudaGetLastError().
+// G (B, D) contiguous, dtype 0 = float32, 1 = bfloat16 -> gbar (D,) f32:
+// the column sums of G, added to gbar's values when `accumulate` is
+// nonzero, divided by `divisor` when it is > 0.  One pass is
+// (accumulate 0, divisor B).  Launches on `stream`, allocates nothing,
+// returns cudaGetLastError().
 extern "C" int repro_gradstats_colsum(const void* G, void* gbar, int64_t B,
-                                      int64_t D, int dtype, void* stream) {
+                                      int64_t D, int dtype, int accumulate,
+                                      float divisor, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bad_shape(B, D)) return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0) return colsum<float>(G, gbar, B, D, st);
-  if (dtype == 1) return colsum<__nv_bfloat16>(G, gbar, B, D, st);
+  if (bad_shape(B, D) || !(divisor >= 0.f))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0)
+    return colsum<float>(G, gbar, B, D, accumulate, divisor, st);
+  if (dtype == 1)
+    return colsum<__nv_bfloat16>(G, gbar, B, D, accumulate, divisor, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -8,10 +8,11 @@ take; the library is built at the first call (``kernels._build``).
 
 ``choose_path`` says which of the library's two kernels an input takes,
 by dtype and head dim alone (the C entry point applies the same rule):
-``"tc"``, the tensor-core kernel (``wgmma`` fed by TMA), for bf16 with
-``hd % 16 == 0``; ``"fma"``, the f32-FMA kernel, for f32 and for bf16
-with ``hd % 8 == 0`` otherwise.  f32 never goes to the tensor cores:
-TF32 would keep about three digits.
+both take ``hd <= 256`` with ``hd % 8 == 0``; ``"tc"``, the tensor-core
+kernel (``wgmma`` fed by TMA), for bf16 with ``hd % 16 == 0``;
+``"fma"``, the f32-FMA kernel, for f32 and for bf16 with
+``hd % 8 == 0`` otherwise.  f32 never goes to the tensor cores: TF32
+would keep about three digits.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ from repro_torch.kernels._build import build
 
 _DTYPE_TAG = {torch.float32: 0, torch.bfloat16: 1}
 _INT32_MAX = 2 ** 31 - 1
+MAX_HEAD_DIM = 256
 _fn = None
 
 
@@ -44,9 +46,9 @@ def choose_path(dtype, hd: int) -> str:
     if dtype not in _DTYPE_TAG:
         raise ValueError(f"dtype {dtype}; the kernel takes one of "
                          "float32/bfloat16 for all of q, k, v")
-    if hd > 128 or hd % 8:
-        raise ValueError(f"head_dim={hd}: the kernel takes hd <= 128 with "
-                         "hd % 8 == 0")
+    if not 0 < hd <= MAX_HEAD_DIM or hd % 8:
+        raise ValueError(f"head_dim={hd}: the kernel takes 0 < hd <= "
+                         f"{MAX_HEAD_DIM} with hd % 8 == 0")
     return "tc" if dtype == torch.bfloat16 and hd % 16 == 0 else "fma"
 
 

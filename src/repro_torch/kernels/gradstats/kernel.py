@@ -1,8 +1,9 @@
 """ctypes binding of the Hopper gradstats kernels
 (``repro_torch/csrc/gradstats.cu``).
 
-``colsum_mean`` and ``moments`` check their inputs, allocate outputs and
-scratch with ``torch.empty`` and launch on PyTorch's current stream.
+``colsum_mean``, ``colsum_into`` and ``moments`` check their inputs,
+allocate outputs and scratch with ``torch.empty`` and launch on
+PyTorch's current stream.
 They take CUDA tensors only and raise on anything the kernels do not
 take; the library is built at the first call (``kernels._build``).
 """
@@ -25,7 +26,8 @@ def _library():
         P, I64, I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         lib.repro_gradstats_scratch_floats.argtypes = [I64, I64]
         lib.repro_gradstats_scratch_floats.restype = I64
-        lib.repro_gradstats_colsum.argtypes = [P, P, I64, I64, I, P]
+        lib.repro_gradstats_colsum.argtypes = [P, P, I64, I64, I, I,
+                                               ctypes.c_float, P]
         lib.repro_gradstats_colsum.restype = I
         lib.repro_gradstats_moments.argtypes = [P, P, P, P, P, P, I64, I64,
                                                 I, P]
@@ -56,27 +58,44 @@ def _raise_on(rc: int, name: str) -> None:
                            f"error {rc}")
 
 
+def _check_vector(v, G, name: str) -> None:
+    D = G.shape[1]
+    if (v.device != G.device or v.dtype != torch.float32
+            or v.shape != (D,) or not v.is_contiguous()):
+        raise ValueError(f"{name} must be a contiguous f32 ({D},) tensor "
+                         f"on {G.device}")
+
+
+def colsum_into(G, acc, *, accumulate: bool, divisor: float = 0.0):
+    """Write G's column sums (plus ``acc``'s values when ``accumulate``,
+    divided by ``divisor`` when it is > 0) into ``acc`` (D,) f32, in
+    place, and return it.  Row chunks of one G summed this way, the last
+    with divisor B, give ``colsum_mean`` of the whole G bit for bit."""
+    check_matrix(G)
+    _check_vector(acc, G, "acc")
+    if not divisor >= 0.0:
+        raise ValueError(f"divisor must be >= 0, got {divisor}")
+    B, D = G.shape
+    with torch.cuda.device(G.device):
+        rc = _library().repro_gradstats_colsum(
+            G.data_ptr(), acc.data_ptr(), B, D, _DTYPE_TAG[G.dtype],
+            int(bool(accumulate)), float(divisor), _stream(G))
+    _raise_on(rc, "colsum")
+    return acc
+
+
 def colsum_mean(G):
     """G (B, D) CUDA -> gbar (D,) f32, the column sum divided by B."""
     check_matrix(G)
-    B, D = G.shape
-    gbar = torch.empty((D,), dtype=torch.float32, device=G.device)
-    with torch.cuda.device(G.device):
-        rc = _library().repro_gradstats_colsum(
-            G.data_ptr(), gbar.data_ptr(), B, D, _DTYPE_TAG[G.dtype],
-            _stream(G))
-    _raise_on(rc, "colsum")
-    return gbar
+    gbar = torch.empty((G.shape[1],), dtype=torch.float32, device=G.device)
+    return colsum_into(G, gbar, accumulate=False, divisor=float(G.shape[0]))
 
 
 def moments(G, gbar):
     """G (B, D), gbar (D,) f32, both CUDA -> (s (B,), d (B,), n2 ())."""
     check_matrix(G)
     B, D = G.shape
-    if (gbar.device != G.device or gbar.dtype != torch.float32
-            or gbar.shape != (D,) or not gbar.is_contiguous()):
-        raise ValueError(f"gbar must be a contiguous f32 ({D},) tensor on "
-                         f"{G.device}")
+    _check_vector(gbar, G, "gbar")
     lib = _library()
     n_scratch = lib.repro_gradstats_scratch_floats(B, D)
     if n_scratch <= 0:

@@ -20,6 +20,13 @@ share of the phase's window, launches per step, and the kernels with the
 most device time and the host ops with the most self CPU time.  Needs a
 CUDA card; the profiler adds host time per launch, so wall times here
 run above ``chip_smoke.py``'s.
+
+A phase whose trace holds no CUDA kernel, or fewer of the port's own
+kernels (flash attention, the selective scan, the two gradstats
+kernels) than their wrappers' launch counters counted during the
+phase, raises ``RuntimeError``: the profiler has missed device work
+(it saw none at all in one run on the card), and an empty trace would
+otherwise read as a 100%-idle phase.
 """
 from __future__ import annotations
 
@@ -38,6 +45,9 @@ from repro_torch.core import batching
 from repro_torch.core.adloco import TrainerRound
 from repro_torch.core.diloco import reshape_for_plan
 from repro_torch.data import make_shard_streams
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.gradstats import ops as gradstats_ops
+from repro_torch.kernels.mamba_scan import ops as scan_ops
 from repro_torch.launch.train import build_loss_fn
 from repro_torch.models import lm
 
@@ -46,6 +56,18 @@ ARCH, BATCH, PROMPT, NEW, TOP = "microllama-300m", 4, 512, 32, 8
 RECURRENT = (("falcon-mamba-7b", 4, 512, "ssm"),
              ("hymba-1.5b", 2, 1536, "hybrid"))
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_WORKERS = 128, 8, 2
+# the port's kernels: the names their traces carry, by launch counter
+TRACED_KERNELS = {"flash_attention": ("flash_tc_kernel", "flash_fwd_kernel"),
+                  "mamba_scan": ("scan_kernel",),
+                  "gradstats_colsum": ("colsum_kernel",),
+                  "gradstats_moments": ("moments_kernel",)}
+
+
+def launch_counts() -> dict:
+    return {"flash_attention": flash_ops.launches,
+            "mamba_scan": scan_ops.scan_launches,
+            "gradstats_colsum": gradstats_ops.colsum_launches,
+            "gradstats_moments": gradstats_ops.moments_launches}
 
 
 def _kernel_events(prof):
@@ -63,8 +85,28 @@ def _busy_us(intervals) -> float:
     return busy
 
 
-def summarize(prof, name: str, wall_s: float, steps: int) -> dict:
+def check_trace(kernels, name: str, launched: dict) -> dict:
+    """The port's kernels seen in the trace, by launch counter; raises
+    RuntimeError when the trace holds no kernel at all, or fewer of one
+    of the port's kernels than ``launched`` (counter deltas) says ran."""
+    if not kernels:
+        raise RuntimeError(f"{name}: the profiler recorded no CUDA kernel; "
+                           "its device time cannot be read from this trace")
+    seen = {k: sum(any(m in e.name for m in marks) for e in kernels)
+            for k, marks in TRACED_KERNELS.items()}
+    short = {k: (seen[k], n) for k, n in launched.items() if seen[k] < n}
+    if short:
+        names = sorted({e.name[:60] for e in kernels})[:TOP]
+        raise RuntimeError(f"{name}: the trace misses launches of the "
+                           f"port's kernels (seen, counted): {short}; "
+                           f"it holds {len(kernels)} kernels, e.g. {names}")
+    return seen
+
+
+def summarize(prof, name: str, wall_s: float, steps: int,
+              launched: dict) -> dict:
     kernels = _kernel_events(prof)
+    seen = check_trace(kernels, name, launched)
     spans = [(e.time_range.start, e.time_range.end) for e in kernels]
     cpu = [e.time_range.start for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CPU]
@@ -81,6 +123,7 @@ def summarize(prof, name: str, wall_s: float, steps: int) -> dict:
         phase=name, wall_s=wall_s, window_us=window, device_busy_us=busy,
         device_idle_share=1.0 - busy / window, kernel_launches=len(kernels),
         launches_per_step=len(kernels) / steps,
+        port_kernels=dict(counted=launched, traced=seen),
         top_kernels=[dict(name=n[:90], device_us=t, calls=c,
                           share_of_busy=t / busy)
                      for n, (t, c) in ranked],
@@ -97,30 +140,20 @@ def run():
     prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
                             generator=gen, device=dev)
     serve.generate(params, cfg, prompts[:, :64], max_new_tokens=2)  # warm-up
-    out = []
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        logits, cache = models.prefill(params, prompts, cfg, PROMPT + NEW,
-                                       use_kernels=True, last_only=True)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    out.append(summarize(prof, "prefill", wall, 1))
+    row, (logits, cache) = _profiled("prefill", lambda: models.prefill(
+        params, prompts, cfg, PROMPT + NEW, use_kernels=True,
+        last_only=True), warmup=False)
+    yield row
 
-    tok = torch.argmax(logits[:, -1], dim=-1)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    def decode():
+        tok = torch.argmax(logits[:, -1], dim=-1)
         for i in range(NEW - 1):
-            logits, cache = models.decode_step(params, cache, tok,
-                                               PROMPT + i, cfg)
-            tok = torch.argmax(logits, dim=-1)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    out.append(summarize(prof, "decode", wall, NEW - 1))
-    return out
+            out_i, _ = models.decode_step(params, cache, tok, PROMPT + i,
+                                          cfg)
+            tok = torch.argmax(out_i, dim=-1)
+
+    yield _profiled("decode", decode, NEW - 1, warmup=False)[0]
 
 
 @torch.inference_mode()
@@ -139,6 +172,7 @@ def run_recurrent(arch: str, batch: int, prompt: int, name: str):
                               use_kernels=True, last_only=True)
 
     row, (logits, cache) = _profiled(f"{name}_prefill", prefill)
+    yield row
     tok = torch.argmax(logits[:, -1], dim=-1)
     step = iter(range(prompt, prompt + NEW))
 
@@ -146,24 +180,27 @@ def run_recurrent(arch: str, batch: int, prompt: int, name: str):
         out, _ = models.decode_step(params, cache, tok, next(step), cfg)
         return torch.argmax(out, dim=-1)
 
-    row2, _ = _profiled(f"{name}_decode_step", decode)
+    yield _profiled(f"{name}_decode_step", decode)[0]
     del params, cache
     torch.cuda.empty_cache()
-    return [row, row2]
 
 
-def _profiled(name: str, fn, steps: int = 1):
-    """Warm ``fn`` up once, then profile one call; returns (summary,
-    fn's result)."""
-    fn()
+def _profiled(name: str, fn, steps: int = 1, warmup: bool = True):
+    """Warm ``fn`` up once (unless ``warmup`` is off), then profile one
+    call; returns (summary, fn's result).  The summary raises if the
+    trace lacks the kernels the launch counters saw (``check_trace``)."""
+    if warmup:
+        fn()
     torch.cuda.synchronize()
+    before = launch_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         result = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    return summarize(prof, name, wall, steps), result
+    launched = {k: n - before[k] for k, n in launch_counts().items()}
+    return summarize(prof, name, wall, steps, launched), result
 
 
 def run_training():
@@ -194,20 +231,17 @@ def run_training():
         return batching.per_sample_grads(loss_fn, tr.params,
                                          stream.next_batch(TRAIN_BATCH))
 
-    out = []
     row, worker = _profiled("train_inner_step", inner_step)
-    out.append(row)
+    yield row
     row, G = _profiled("train_stats_grads", stats_grads, TRAIN_BATCH)
-    out.append(row)
-    row, _ = _profiled("train_stats_reduce", lambda: batching.requested_batch(
-        batching.stats_from_matrix(G, use_kernel=True), acfg, TRAIN_BATCH))
-    out.append(row)
+    yield row
+    yield _profiled("train_stats_reduce", lambda: batching.requested_batch(
+        batching.stats_from_matrix(G, use_kernel=True), acfg,
+        TRAIN_BATCH))[0]
     del G
     workers = [worker] * TRAIN_WORKERS
-    row, _ = _profiled("train_outer", lambda: rnd.outer(tr, workers,
-                                                        x_prev=tr.params))
-    out.append(row)
-    return out
+    yield _profiled("train_outer", lambda: rnd.outer(tr, workers,
+                                                     x_prev=tr.params))[0]
 
 
 def main() -> int:
@@ -216,11 +250,10 @@ def main() -> int:
                          capture_output=True, text=True).stdout.strip()
     print(json.dumps({"nvidia_smi": smi, "torch": torch.__version__}),
           flush=True)
-    rows = run()
-    for spec in RECURRENT:
-        rows += run_recurrent(*spec)
-    for row in rows + run_training():
-        print(json.dumps(row), flush=True)
+    phases = [run()] + [run_recurrent(*spec) for spec in RECURRENT]
+    for rows in phases + [run_training()]:
+        for row in rows:              # each printed as its phase ends
+            print(json.dumps(row), flush=True)
     return 0
 
 

@@ -10,10 +10,13 @@ plus ``--device`` (default ``cuda``; tests pass ``cpu``),
 fields, defaults as there).  The trainer pool is orchestrated host-side
 over eager steps on the one device.  The batch statistics run through
 the gradstats kernels (``stats_use_kernel=True``); attention runs on
-the plain path, as in the JAX package's training.  Dense architectures
-only; others raise ``NotImplementedError`` (the models run the SSM and
-hybrid families' loss on the CPU, but training them on the card is a
-later slice of the port).
+the plain path, as in the JAX package's training, and the Mamba blocks'
+selective scan the associative scan through autograd (the CUDA scan
+kernel is forward-only).  It trains the dense, moe, ssm and hybrid
+families; encoder-decoder and VLM models raise ``NotImplementedError``
+(``models.lm``).  After the run, one ``[train] stats probe`` line per
+round that ran the per-sample probe gives its B and, where G did not
+fit the card, the rows per chunk (``batching.per_sample_probe``).
 """
 from __future__ import annotations
 
@@ -44,6 +47,9 @@ def parse_args(argv=None):
                     choices=sorted(ARCH_REGISTRY))
     ap.add_argument("--reduced", action="store_true",
                     help="2-layer reduced variant (CPU-friendly)")
+    ap.add_argument("--num-layers", type=int, default=None,
+                    help="cut the model to this many layers, widths "
+                         "unchanged (a depth cut, to fit one card)")
     ap.add_argument("--outer-steps", type=int, default=4)
     ap.add_argument("--inner-steps", type=int, default=8)
     ap.add_argument("--trainers", type=int, default=2)
@@ -81,12 +87,11 @@ def parse_args(argv=None):
 def make_configs(args):
     """(ModelConfig, AdLoCoConfig) of the parsed flags."""
     cfg = get_config(args.arch)
-    if cfg.arch_type != "dense":
-        raise NotImplementedError(
-            f"the training launcher runs dense decoders only; {cfg.name} is "
-            f"{cfg.arch_type!r}")
+    lm.check_arch(cfg)
     if args.reduced:
         cfg = reduced(cfg)
+    if args.num_layers is not None:
+        cfg = cfg.with_overrides(num_layers=args.num_layers)
     acfg = AdLoCoConfig(
         num_outer_steps=args.outer_steps,
         num_inner_steps=args.inner_steps,
@@ -143,6 +148,11 @@ def run(argv=None):
     pool, hist = train_adloco(loss_fn, init_params, streams, acfg,
                               verbose=True, restore_from=restore_from,
                               device=dev)
+    for t, probes in zip(hist.outer_step, hist.stats_probe):
+        for B, rows, chunks in probes:
+            how = ("one pass" if chunks == 1
+                   else f"{chunks} row chunks of {rows}")
+            print(f"[train] t={t} stats probe B={B}: {how}")
     print(f"[train] final loss={hist.loss[-1]:.4f} "
           f"comm_events={pool.comms.events} "
           f"comm_GB={pool.comms.total_bytes/2**30:.3f}")
@@ -159,6 +169,12 @@ def run(argv=None):
 
 
 def main(argv=None):
+    # full-width training holds optimizer states, workers and the probe's
+    # G in large blocks; expandable segments keep the blocks freed between
+    # them usable (read when the CUDA allocator starts, so set before any
+    # CUDA call; a value the caller set is kept)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     run(argv)
     return 0
 

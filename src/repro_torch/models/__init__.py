@@ -9,9 +9,9 @@
 
 ``params`` is a ``lm.DecoderLM``; caches live on its device.  Training
 passes ``loss_fn`` the flat ``{name: tensor}`` dict of ``lm.param_dict``
-instead.  Dense, SSM (falcon-mamba-7b) and hybrid (hymba-1.5b)
-decoders; MoE, VLM/audio prefixes and encoder-decoder models raise
-``NotImplementedError``.
+instead.  Dense, MoE (deepseek-moe-16b, grok-1-314b), SSM
+(falcon-mamba-7b) and hybrid (hymba-1.5b) decoders; VLM/audio prefixes
+and encoder-decoder models raise ``NotImplementedError``.
 """
 from __future__ import annotations
 

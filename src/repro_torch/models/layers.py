@@ -1,7 +1,8 @@
 """Building blocks of the decoder families the port runs, in PyTorch.
 
-Port of ``repro/models/layers.py`` for the dense, SSM and hybrid
-families (attention, SwiGLU MLP, the Mamba-1 selective SSM): plain
+Port of ``repro/models/layers.py`` for the dense, MoE, SSM and hybrid
+families (attention, SwiGLU MLP, the capacity-dispatched MoE block, the
+Mamba-1 selective SSM): plain
 functions on tensors, with a parameter group ``p`` passed as a mapping
 (an ``nn.ParameterDict`` or a dict of tensors).  Weights keep the JAX
 package's ``(d_in, d_out)`` orientation, so every projection is
@@ -11,12 +12,11 @@ cw=conv width.
 
 The port has no banded sliding-window path (``sdpa_banded``): a local
 layer takes masked full attention, which computes the same function.
-The MoE block is not ported yet.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -245,6 +245,126 @@ def project_kv_one(p, x, cfg: ModelConfig, pos):
         k = rms_norm(k, p["k_norm"], cfg.rms_eps)
     cos, sin = rope_cos_sin(_rope_pos_for_decode(pos), hd, cfg.rope_theta)
     return apply_rope(k, cos, sin), v
+
+
+# --------------------------------------------------------------------
+# MoE (capacity-based sort dispatch — no (T,E,C) one-hot tensor)
+# --------------------------------------------------------------------
+
+# Parameters of a MoE block that stay f32 in a bf16 model, as in the JAX
+# init: the router (its logits are f32).
+MOE_F32_LEAVES = ("router",)
+
+
+def init_moe(gen: torch.Generator, cfg: ModelConfig, dtype):
+    mc = cfg.moe
+    d, E = cfg.d_model, mc.num_experts
+    de = mc.d_expert or cfg.d_ff
+    p = {
+        "router": dense_init(gen, (d, E), dtype=torch.float32),
+        "gate": dense_init(gen, (E, d, de), dtype=dtype),
+        "up": dense_init(gen, (E, d, de), dtype=dtype),
+        "down": dense_init(gen, (E, de, d), dtype=dtype),
+    }
+    if mc.num_shared:
+        ns = mc.num_shared
+        p["s_gate"] = dense_init(gen, (ns, d, de), dtype=dtype)
+        p["s_up"] = dense_init(gen, (ns, d, de), dtype=dtype)
+        p["s_down"] = dense_init(gen, (ns, de, d), dtype=dtype)
+    return p
+
+
+class MoERoute(NamedTuple):
+    """The routing of T tokens' T*K assignments (token t's k-th choice
+    is assignment t*K + k)."""
+    probs: torch.Tensor      # (T, E) f32 router softmax
+    topw: torch.Tensor       # (T, K) f32 top-k weights, renormalised
+    topi: torch.Tensor       # (T, K) expert of each choice
+    capacity: int            # C: slots per expert
+    slot: torch.Tensor       # (T*K,) expert * C + rank, or E*C if dropped
+    kept: torch.Tensor       # (T*K,) bool: rank within its expert < C
+
+
+def moe_route(p, x, cfg: ModelConfig, *,
+              capacity_factor: float = 1.25) -> MoERoute:
+    """Route x (T, d): f32 router logits, top-k of the softmax, and each
+    assignment's rank within its expert in a STABLE sort by expert id
+    (so among one expert's assignments the earlier token ranks first).
+    C = max(K, ceil(T*K/E * capacity_factor)) from this call's T."""
+    mc = cfg.moe
+    T = x.shape[0]
+    E, K = mc.num_experts, mc.top_k
+    C = max(K, int(math.ceil(T * K / E * capacity_factor)))
+    logits = x.float() @ p["router"].float()
+    probs = torch.softmax(logits, dim=-1)
+    topw, topi = torch.topk(probs, K, dim=-1)
+    topw = topw / torch.sum(topw, dim=-1, keepdim=True)
+
+    flat_e = topi.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    idx = torch.arange(T * K, device=x.device)
+    rank = idx - torch.searchsorted(sorted_e, sorted_e, side="left")
+    valid = rank < C
+    dest = torch.where(valid, sorted_e * C + rank, E * C)
+    slot = torch.empty_like(dest)
+    slot[order] = dest
+    kept = torch.empty_like(valid)
+    kept[order] = valid
+    return MoERoute(probs, topw, topi, C, slot, kept)
+
+
+def moe_block(p, x, cfg: ModelConfig, *, capacity_factor: float = 1.25):
+    """MoE with per-group dispatch.  x: (T, d) flattened tokens, or
+    (G, Tg, d) grouped tokens (G = batch rows), where every group is
+    routed independently (its own capacity) and aux is the groups'
+    mean.  Returns (y like x, aux_loss f32 scalar)."""
+    if x.dim() == 3:
+        outs = [_moe_block_flat(p, xg, cfg, capacity_factor=capacity_factor)
+                for xg in x]
+        return (torch.stack([y for y, _ in outs]),
+                torch.mean(torch.stack([a for _, a in outs])))
+    return _moe_block_flat(p, x, cfg, capacity_factor=capacity_factor)
+
+
+def _moe_block_flat(p, x, cfg: ModelConfig, *,
+                    capacity_factor: float = 1.25):
+    """x: (T, d) -> (y (T, d), aux_loss).  Sort-based capacity dispatch:
+    kept assignments are scattered into an (E*C, d) buffer (unused slots
+    zero), each expert's SwiGLU runs as one batched product per matrix,
+    and each assignment's output comes back weighted by its top-k weight
+    (dropped assignments give 0).  Shared experts see every token.  The
+    load-balance aux counts every assignment, dropped ones too."""
+    mc = cfg.moe
+    T, d = x.shape
+    E, K = mc.num_experts, mc.top_k
+    r = moe_route(p, x, cfg, capacity_factor=capacity_factor)
+    C = r.capacity
+
+    tok = torch.arange(T * K, device=x.device) // K
+    slot_token = torch.zeros((E * C,), dtype=torch.long, device=x.device)
+    slot_token[r.slot[r.kept]] = tok[r.kept]
+    slot_used = torch.zeros((E * C,), dtype=x.dtype, device=x.device)
+    slot_used[r.slot[r.kept]] = 1
+    xe = (x[slot_token] * slot_used[:, None]).reshape(E, C, d)
+    h = F.silu(torch.bmm(xe, p["gate"])) * torch.bmm(xe, p["up"])
+    ye = torch.bmm(h, p["down"]).reshape(E * C, d)
+
+    w = r.topw.reshape(-1, 1).to(x.dtype) * r.kept.to(x.dtype)[:, None]
+    y = (ye[torch.clamp(r.slot, max=E * C - 1)] * w).reshape(T, K, d)
+    y = y.sum(dim=1)
+
+    if mc.num_shared:
+        hs = F.silu(torch.einsum("td,sdf->tsf", x, p["s_gate"]))
+        hs = hs * torch.einsum("td,sdf->tsf", x, p["s_up"])
+        y = y + torch.einsum("tsf,sfd->td", hs, p["s_down"])
+
+    # load-balance aux loss (Switch-style)
+    frac_tokens = torch.bincount(r.topi.reshape(-1), minlength=E).float() \
+        / (T * K)
+    mean_prob = torch.mean(r.probs, dim=0)
+    aux = mc.load_balance_coef * E * torch.sum(frac_tokens * mean_prob)
+    return y, aux
 
 
 # --------------------------------------------------------------------

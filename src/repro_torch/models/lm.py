@@ -1,14 +1,22 @@
-"""Decoder-only language model in PyTorch: dense, SSM and hybrid.
+"""Decoder-only language model in PyTorch: dense, MoE, SSM and hybrid.
 
-Port of ``repro/models/lm.py`` for three families: ``dense`` (attention
-+ SwiGLU MLP), ``ssm`` (a Mamba block per layer, attention-free:
-falcon-mamba-7b) and ``hybrid`` (attention and Mamba heads in parallel
-on the same normed input, averaged, then the MLP: hymba-1.5b).
+Port of ``repro/models/lm.py`` for four families: ``dense`` (attention
++ SwiGLU MLP), ``moe`` (attention + a capacity-dispatched MoE block in
+place of the MLP: deepseek-moe-16b, grok-1-314b), ``ssm`` (a Mamba
+block per layer, attention-free: falcon-mamba-7b) and ``hybrid``
+(attention and Mamba heads in parallel on the same normed input,
+averaged, then the MLP: hymba-1.5b).
 ``DecoderLM`` holds the parameters (an ``nn.ModuleList`` of
 ``DecoderLayer``s, weights in JAX's ``(d_in, d_out)`` orientation); the
 entry points below are plain functions over it, as in the JAX package,
-with a Python loop over the layers where JAX scans.  MoE, VLM/audio
-prefixes and encoder-decoder models raise ``NotImplementedError``.
+with a Python loop over the layers where JAX scans.  VLM/audio prefixes
+and encoder-decoder models raise ``NotImplementedError``.
+
+The MoE block routes as JAX does per entry point: ``forward`` /
+``loss_fn`` and ``prefill_chunk_paged`` follow ``cfg.moe.dispatch``
+("grouped": one routing group per batch row), ``prefill`` routes all
+B*S tokens as one group, and the decode steps the B tokens of a step
+as one group.  Capacity couples the tokens of a group, as in JAX.
 
 Cache layout (decode), as in JAX:
   k, v      : (L, B, C, Hk, hd)      C = cache length (ring buffer)
@@ -59,15 +67,15 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
     return _DTYPES[cfg.dtype]
 
 
-_ARCHS = ("dense", "ssm", "hybrid")
+_ARCHS = ("dense", "moe", "ssm", "hybrid")
 
 
-def _check_arch(cfg: ModelConfig) -> None:
-    if (cfg.arch_type not in _ARCHS or cfg.moe is not None
-            or cfg.is_encoder_decoder or cfg.frontend is not None
-            or cfg.num_prefix_tokens):
+def check_arch(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError for a family the port does not run."""
+    if (cfg.arch_type not in _ARCHS or cfg.is_encoder_decoder
+            or cfg.frontend is not None or cfg.num_prefix_tokens):
         raise NotImplementedError(
-            f"the PyTorch port runs dense, ssm and hybrid decoders; "
+            f"the PyTorch port runs dense, moe, ssm and hybrid decoders; "
             f"{cfg.name} is {cfg.arch_type!r}")
 
 
@@ -84,16 +92,17 @@ def _param(t: torch.Tensor) -> nn.Parameter:
 
 
 # A layer's parameter groups in registration (and so named_parameters)
-# order: dense {attn_norm, attn, mlp_norm, gate, up, down}; ssm {norm,
-# mamba}; hybrid the dense groups plus mamba.
-_LAYER_KEYS = ("norm", "attn_norm", "attn", "mamba", "mlp_norm", "gate",
-               "up", "down")
+# order: dense {attn_norm, attn, mlp_norm, gate, up, down}; moe {attn_norm,
+# attn, mlp_norm, moe}; ssm {norm, mamba}; hybrid the dense groups plus
+# mamba.
+_LAYER_KEYS = ("norm", "attn_norm", "attn", "mamba", "mlp_norm", "moe",
+               "gate", "up", "down")
 
 
 class DecoderLayer(nn.Module):
     """One pre-norm block, from the JAX layer tree: attention + SwiGLU
-    MLP (dense), a Mamba block (ssm), or both heads and the MLP
-    (hybrid)."""
+    MLP (dense) or MoE block (moe), a Mamba block (ssm), or both heads
+    and the MLP (hybrid)."""
 
     def __init__(self, tree: Dict):
         super().__init__()
@@ -112,13 +121,13 @@ class DecoderLayer(nn.Module):
 
 
 class DecoderLM(nn.Module):
-    """Parameters of a decoder (dense, ssm or hybrid).  ``tree`` is the
+    """Parameters of a decoder (dense, moe, ssm or hybrid).  ``tree`` is the
     JAX parameter layout with the layers as a list instead of a stacked
     axis: {"embed", "layers": [layer trees], "final_norm"[, "lm_head"]}."""
 
     def __init__(self, cfg: ModelConfig, tree: Dict):
         super().__init__()
-        _check_arch(cfg)
+        check_arch(cfg)
         self.cfg = cfg
         self.embed = _param(tree["embed"])
         self.layers = nn.ModuleList(DecoderLayer(t) for t in tree["layers"])
@@ -185,8 +194,11 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig) -> Dict:
          "attn": L.init_attention(gen, cfg, dt)}
     if cfg.hybrid:
         p["mamba"] = L.init_mamba(gen, cfg, dt)
+    p["mlp_norm"] = torch.zeros((d,), dtype=dt, device=dev)
+    if cfg.moe is not None:
+        p["moe"] = L.init_moe(gen, cfg, dt)
+        return p
     p.update({
-        "mlp_norm": torch.zeros((d,), dtype=dt, device=dev),
         "gate": L.dense_init(gen, (d, cfg.d_ff), dtype=dt),
         "up": L.dense_init(gen, (d, cfg.d_ff), dtype=dt),
         "down": L.dense_init(gen, (cfg.d_ff, d), dtype=dt),
@@ -200,7 +212,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     bits cannot be matched: parity tests carry JAX params over with
     ``repro_torch.convert``).  Runs on ``cuda`` unless ``device`` names
     another."""
-    _check_arch(cfg)
+    check_arch(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     dt = _dtype(cfg)
@@ -246,9 +258,22 @@ def _head(params: DecoderLM, x, cfg: ModelConfig):
         @ _head_weight(params, cfg)
 
 
-def _mlp(layer: DecoderLayer, x, cfg: ModelConfig):
+def _ffn(layer: DecoderLayer, x, cfg: ModelConfig, grouped: bool):
+    """The layer's MLP (SwiGLU, or the MoE block) of the normed x (B,S,d)
+    -> (y (B,S,d), MoE aux or None).  ``grouped``: follow
+    ``cfg.moe.dispatch`` (JAX's forward and chunked prefill); otherwise
+    every token of the call is one routing group."""
     h2 = L.rms_norm(x, layer.mlp_norm, cfg.rms_eps)
-    return x + L.swiglu(h2, layer.gate, layer.up, layer.down)
+    if cfg.moe is None:
+        return L.swiglu(h2, layer.gate, layer.up, layer.down), None
+    if grouped and cfg.moe.dispatch == "grouped":
+        return L.moe_block(layer.moe, h2, cfg)
+    y, aux = L.moe_block(layer.moe, h2.reshape(-1, h2.shape[-1]), cfg)
+    return y.reshape(h2.shape), aux
+
+
+def _mlp(layer: DecoderLayer, x, cfg: ModelConfig, grouped: bool = False):
+    return x + _ffn(layer, x, cfg, grouped)[0]
 
 
 def _tensor(x, device, dtype=torch.long):
@@ -257,12 +282,13 @@ def _tensor(x, device, dtype=torch.long):
 
 def _layer_apply(layer: DecoderLayer, x, cfg: ModelConfig, is_global: bool,
                  positions, use_kernels: bool):
-    """One layer, full sequence (training / ``forward``).  The Mamba
-    blocks run the associative scan, JAX's ``mamba_forward`` default."""
+    """One layer, full sequence (training / ``forward``) -> (x, MoE aux
+    or None).  The Mamba blocks run the associative scan, JAX's
+    ``mamba_forward`` default."""
     if cfg.arch_type == "ssm":
         h = L.rms_norm(x, layer.norm, cfg.rms_eps)
         return x + L.mamba_forward(layer.mamba, h, cfg,
-                                   use_kernel=use_kernels)
+                                   use_kernel=use_kernels), None
     h = L.rms_norm(x, layer.attn_norm, cfg.rms_eps)
     a = L.attention(layer.attn, h, cfg, causal=True,
                     window=L.plan_window(cfg, is_global),
@@ -270,7 +296,9 @@ def _layer_apply(layer: DecoderLayer, x, cfg: ModelConfig, is_global: bool,
     if cfg.hybrid:
         m = L.mamba_forward(layer.mamba, h, cfg, use_kernel=use_kernels)
         a = 0.5 * (a + m)          # Hymba's parallel-head mean fusion
-    return _mlp(layer, x + a, cfg)
+    x = x + a
+    y, aux = _ffn(layer, x, cfg, grouped=True)
+    return x + y, aux
 
 
 # --------------------------------------------------------------------
@@ -280,14 +308,17 @@ def _layer_apply(layer: DecoderLayer, x, cfg: ModelConfig, is_global: bool,
 def backbone(params: DecoderLM, tokens, cfg: ModelConfig, *,
              use_kernels: bool = False):
     """tokens (B,S) -> (final hidden states (B, S, d) after the final
-    norm, aux).  aux is 0 (no MoE).  The JAX ``prefix_emb`` (VLM/audio
-    stub embeddings) belongs to families the port does not run yet."""
+    norm, aux): aux is the MoE layers' load-balance losses summed (0
+    without MoE).  The JAX ``prefix_emb`` (VLM/audio stub embeddings)
+    belongs to families the port does not run yet."""
     x = _embed(params, tokens, cfg)
     positions = torch.arange(x.shape[1], device=x.device)
+    aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer, g in zip(params.layers, layer_is_global(cfg)):
-        x = _layer_apply(layer, x, cfg, g, positions, use_kernels)
-    return (L.rms_norm(x, params.final_norm, cfg.rms_eps),
-            torch.zeros((), dtype=torch.float32, device=x.device))
+        x, aux = _layer_apply(layer, x, cfg, g, positions, use_kernels)
+        if aux is not None:
+            aux_sum = aux_sum + aux
+    return L.rms_norm(x, params.final_norm, cfg.rms_eps), aux_sum
 
 
 def forward(params: DecoderLM, tokens, cfg: ModelConfig, *,
@@ -322,7 +353,8 @@ def loss_fn(params: DecoderLM, batch, cfg: ModelConfig, *,
     """Next-token cross-entropy.  batch: {"tokens": (B,S) int}.
 
     Returns (loss, metrics): the mean over predicted positions plus the
-    (zero, for dense models) MoE aux term over the layers.
+    MoE aux term (the layers' load-balance losses summed, over the layer
+    count; zero without MoE).
     ``logit_chunk``: compute the CE in sequence chunks of this size.
     Attention runs on the plain path (JAX training builds its loss with
     ``use_kernels=False``; the flash kernel has no backward)."""
@@ -410,7 +442,7 @@ def prefill(params: DecoderLM, tokens, cfg: ModelConfig, cache_len: int, *,
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
                device=None) -> Dict[str, torch.Tensor]:
-    _check_arch(cfg)
+    check_arch(cfg)
     dev = resolve_device(device)
     cache = {}
     if _has_attn(cfg):
@@ -515,7 +547,7 @@ def init_paged_cache(cfg: ModelConfig, n_lanes: int, num_blocks: int,
     """Block pools (L, num_blocks + 1, block_size, Hk, hd), the last
     block scratch, for families with attention; per-lane Mamba state
     (L, n_lanes, ...) for families with a Mamba block."""
-    _check_arch(cfg)
+    check_arch(cfg)
     dev = resolve_device(device)
     cache = {}
     if _has_attn(cfg):
@@ -647,5 +679,5 @@ def prefill_chunk_paged(params: DecoderLM, cache, tokens, pos0: int,
         a = a.reshape(B, Sc, cfg.q_dim) @ layer.attn["o"]
         if cfg.hybrid:
             a = 0.5 * (a + mamba(i, layer, h))
-        x = _mlp(layer, x + a, cfg)
+        x = _mlp(layer, x + a, cfg, grouped=True)
     return _head(params, x[:, -1], cfg), cache

@@ -23,10 +23,14 @@ class Optimizer(NamedTuple):
     update: Callable
 
 
-def apply_updates(params: Params, updates: Params) -> Params:
+def apply_updates(params: Params, updates: Params, *,
+                  consume: bool = False) -> Params:
     """The update is cast to the param dtype first, then added: a bf16
-    param gets a bf16 add, as in JAX."""
-    return {k: p + updates[k].to(p.dtype) for k, p in params.items()}
+    param gets a bf16 add, as in JAX.  ``consume=True`` empties
+    ``updates`` as it goes, so each f32 update is freed once applied
+    (the caller must hold no other reference to the dict)."""
+    take = updates.pop if consume else updates.__getitem__
+    return {k: p + take(k).to(p.dtype) for k, p in params.items()}
 
 
 def _zeros_like_f32(params: Params) -> Params:

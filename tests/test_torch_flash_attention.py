@@ -111,6 +111,8 @@ def test_cpu_path_counts_no_launch_and_binding_rejects_cpu():
     (torch.bfloat16, 32, "tc"), (torch.bfloat16, 40, "fma"),
     (torch.bfloat16, 72, "fma"), (torch.float32, 64, "fma"),
     (torch.float32, 128, "fma"), (torch.float32, 40, "fma"),
+    (torch.bfloat16, 256, "tc"), (torch.float32, 256, "fma"),
+    (torch.bfloat16, 136, "fma"),
 ])
 def test_path_choice_by_dtype_and_head_dim(dtype, hd, path):
     """bf16 with hd % 16 == 0 takes the tensor-core kernel; f32 (TF32
@@ -119,7 +121,7 @@ def test_path_choice_by_dtype_and_head_dim(dtype, hd, path):
 
 
 @pytest.mark.parametrize("dtype,hd", [
-    (torch.bfloat16, 256), (torch.float32, 256), (torch.bfloat16, 136),
+    (torch.bfloat16, 264), (torch.float32, 512), (torch.bfloat16, 260),
     (torch.bfloat16, 20), (torch.float16, 64)])
 def test_path_choice_rejects_what_no_kernel_takes(dtype, hd):
     with pytest.raises(ValueError):
@@ -139,13 +141,17 @@ GPU_CASES = [
     (1, 96, 4, 4, 80, None, True, "float32"),
     (1, 128, 8, 8, 32, None, True, "float32"),
     (1, 192, 4, 2, 64, None, False, "float32"),
+    (2, 2048, 8, 4, 256, None, True, "bfloat16"),      # gemma3-4b global
+    (2, 2048, 8, 4, 256, 1024, True, "bfloat16"),      # gemma3-4b local
+    (1, 300, 8, 4, 256, 100, True, "float32"),
 ]
 
 
 # bf16 edge cases of the tensor-core kernel: hd 128, hd 80 and 32 (hd
 # past a 64-dim block and short of one), ragged S, a window smaller than
 # a tile, bidirectional at a padded S, and a window of 0 (every row
-# fully masked: writes 0); and bf16 hd 40 on the FMA kernel
+# fully masked: writes 0); hd 256 at a ragged S and hd 192 (a 256-wide
+# tile, zero-filled past hd); and bf16 hd 40 and 136 on the FMA kernel
 TC_CASES = [
     (1, 384, 6, 3, 128, 64, True, "bfloat16"),
     (1, 96, 4, 4, 80, None, True, "bfloat16"),
@@ -155,6 +161,9 @@ TC_CASES = [
     (1, 192, 4, 2, 64, None, False, "bfloat16"),
     (1, 130, 4, 2, 128, 0, True, "bfloat16"),
     (1, 96, 4, 2, 40, None, True, "bfloat16"),
+    (2, 2000, 8, 4, 256, None, True, "bfloat16"),
+    (1, 200, 4, 2, 192, 100, True, "bfloat16"),
+    (1, 96, 4, 2, 136, None, True, "bfloat16"),
 ]
 
 
