@@ -98,13 +98,32 @@ any failure raises and exits non-zero:
      tensor-core path once per layer, kernel prefill within 5% of the
      plain prefill's largest logit, ids in range; prefill and decode
      times, peak memory.
+  10. the encoder-decoder and the VLM prefix: ``serve.generate`` on
+     whisper-small at full width in bf16 (12 + 12 layers, 4 x 1500
+     seeded frames, 4-token prompts teacher-forced, 32 greedy tokens;
+     flash on the tensor-core path once per encoder layer, kernel and
+     plain encoder states and first logits within 5% of their largest
+     magnitude; in f32 the kernel and plain greedy tokens equal, excused
+     only at a near-tie) and on phi-3-vision-4.2b at full width in bf16
+     (32 layers, a seeded (2, 576, 3072) patch prefix before 2 prompts
+     of 512 tokens, 32 greedy tokens; flash on the tensor-core path once
+     per layer, kernel prefill within 5%).
+  11. training them: whisper-small at full width, 3 AdamW inner steps
+     (``core.diloco.make_inner_step`` over ``models.loss_fn``) on 4 x
+     (1500 frames, 128 tokens); phi-3-vision-4.2b through
+     ``launch.train`` cut to 8 of its 32 layers (text-only, as the JAX
+     launcher; in phase 8's list) and one inner step of the same cut
+     model on a batch with a 576-token prefix.  Finite losses, params
+     that move, no flash launch; device ms and peak memory.
 
 A phase alone: ``python3 -c 'import sys; sys.path.insert(0, "."); import
 chip_smoke as cs; cs.phase_probe()'`` from the root (each phase builds
-the kernels it needs at first use).
+the kernels it needs at first use); ``cs.phase_generate_encdec()`` and
+``cs.phase_generate_vlm()`` the same way.
 
 Then the ``kernels`` summary line (flash with its launches per path and
-model and its hd-256 times; gradstats with the training, cluster,
+model, its hd-256 times and its times at whisper-small's encoder and
+phi-3-vision's prefill; gradstats with the training, cluster,
 probe and family-training launches), the card's name and power limit,
 and
 last ``{"ok": true, "device": {...}}``.  Without a card (or without the
@@ -316,6 +335,38 @@ def sass_count(lib: Path, opcode: str) -> int:
     return sum(opcode in line for line in sass.splitlines())
 
 
+# the Pallas kernel pads S to a multiple of its 128-key tile
+PAD_TILE = 128
+
+
+def padding_check(q, k, v, out, w) -> dict:
+    """Whether a bidirectional ``out`` masks the keys past a ragged S.
+    Left unmasked, the zero keys that pad S to ``PAD_TILE`` only rescale
+    each row (by about 1.5% at S = 1500), within ``TOL``; so the RMS of
+    out - ref, both against the plain version in f32, must stay under 1%
+    of ref's and under half that of the plain version run with the
+    padding as keys (the fault of the Pallas kernel, ROADMAP 3.6)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    S, pad = q.shape[1], -q.shape[1] % PAD_TILE
+    q, k, v = (t.float() for t in (q, k, v))
+    ref = flash_attention_ref(q, k, v, causal=False, window=w)
+    unmasked = flash_attention_ref(
+        *(F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v)),
+        causal=False, window=w)[:, :S]
+
+    def rms(t):
+        return t.pow(2).mean().sqrt().item()
+
+    err_rms, ref_rms = rms(out.float() - ref), rms(ref)
+    unmasked_rms = rms(unmasked - ref)
+    return dict(rel_rms_err=err_rms / ref_rms,
+                unmasked_padding_rel_rms=unmasked_rms / ref_rms,
+                padding_ok=err_rms < 1e-2 * ref_rms
+                and err_rms < 0.5 * unmasked_rms)
+
+
 def phase_kernels():
     """Flash kernel against its plain version; times at the MicroLlama,
     hymba-1.5b and gemma3-4b prefill shapes.  Returns the timed rows,
@@ -359,6 +410,14 @@ def phase_kernels():
         (1, 300, 8, 4, 256, 100, True, f32, False),
         (1, 200, 4, 2, 192, 100, True, bf16, False),
         (1, 96, 4, 2, 136, None, True, bf16, False),
+        # whisper-small's encoder: bidirectional over 1500 frames, whose
+        # last key tile is ragged, H = Hk; phi-3-vision's prefill (576
+        # patches + 512 tokens) at hd 96 (the 128-wide tile zero-filled
+        # past hd); ragged, bidirectional and hd 96 at once
+        (4, 1500, 12, 12, 64, None, False, bf16, True),  # whisper encoder
+        (4, 1500, 12, 12, 64, None, False, f32, False),
+        (2, 1088, 32, 32, 96, None, True, bf16, True),   # phi-3-vision
+        (1, 200, 4, 4, 96, None, False, bf16, False),
     ]
     rows = []
     for B, S, H, Hk, hd, window, causal, dt, timed in cases:
@@ -381,7 +440,11 @@ def phase_kernels():
             and sum(ran.values()) == 1
         row = dict(shape=[B, S, H, Hk, hd], window=window, causal=causal,
                    dtype=str(dt).replace("torch.", ""), path=path,
-                   launches_by_path=ran, max_abs_err=err, tol=TOL[dt], ok=ok)
+                   launches_by_path=ran, max_abs_err=err, tol=TOL[dt])
+        if not causal and S % PAD_TILE:
+            row.update(padding_check(q, k, v, out, w))
+            ok = ok and row["padding_ok"]
+        row["ok"] = ok
         if timed:
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
             # the library call computes the same function: a window
@@ -683,10 +746,10 @@ def reset_counts():
 
 
 @contextmanager
-def only_kernel(name: str):
+def only_kernel(name):
     """While active, ``prefill(use_kernels=True)`` runs the kernel
-    ``name`` alone: every other wrapper is swapped for the plain
-    function that the plain prefill calls in its place."""
+    ``name`` alone (None: no kernel): every other wrapper is swapped for
+    the plain function that the plain prefill calls in its place."""
     from repro_torch.kernels.flash_attention import ops as flash
     from repro_torch.kernels.mamba_scan import ops as scan
     from repro_torch.models import layers as L
@@ -703,7 +766,7 @@ def only_kernel(name: str):
 
 
 def prefill_parity(params, cfg, prompts, cache_len: int, kernels,
-                   rel_tol: float):
+                   rel_tol: float, prefix_emb=None):
     """Last-position logits of the kernel prefill against the plain
     prefill's, held within ``rel_tol`` of the plain logits' largest
     magnitude.  Where the path runs several ``kernels``, each also runs
@@ -714,7 +777,8 @@ def prefill_parity(params, cfg, prompts, cache_len: int, kernels,
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         logits, _ = models.prefill(params, prompts, cfg, cache_len,
-                                   last_only=True, **kw)
+                                   prefix_emb=prefix_emb, last_only=True,
+                                   **kw)
         torch.cuda.synchronize()
         return logits[:, -1].float(), time.perf_counter() - t0
 
@@ -827,6 +891,8 @@ def check_ids(res, cfg, B: int, new: int):
 
 
 def gen_times(res, wall_s: float, B: int, S: int, new: int):
+    """``generate``'s times; S counts the positions before the first
+    token (frames or prefix, and the prompt)."""
     return dict(wall_s=wall_s, prefill_ms=res.prefill_ms,
                 decode_ms=res.decode_ms,
                 decode_ms_per_step=res.decode_ms / (new - 1),
@@ -835,13 +901,15 @@ def gen_times(res, wall_s: float, B: int, S: int, new: int):
 
 
 @torch.inference_mode()
-def generate_main_path(arch: str, B: int, S: int, new: int, expect: dict):
+def generate_main_path(arch: str, B: int, S: int, new: int, expect: dict,
+                       prefix: int = 0):
     """``serve.generate`` on ``arch`` at full width in bf16 (seeded
-    random weights), with every launch count set to 0 just before the
-    call and read just after; each must equal ``expect``.  Then the
-    kernel prefill's last logits against the plain prefill's, within 5%
-    of their largest magnitude.  Returns the launch counts and (cfg,
-    params, prompts, result)."""
+    random weights; ``prefix`` > 0: a seeded (B, prefix, d) patch
+    prefix before the prompts), with every launch count set to 0 just
+    before the call and read just after; each must equal ``expect``.
+    Then the kernel prefill's last logits against the plain prefill's,
+    within 5% of their largest magnitude.  Returns the launch counts and
+    (cfg, params, prompts, result)."""
     from repro_torch import models, serve
     from repro_torch.configs import get_config
 
@@ -851,14 +919,19 @@ def generate_main_path(arch: str, B: int, S: int, new: int, expect: dict):
     gen = torch.Generator(device="cuda").manual_seed(1)
     prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
                             device="cuda")
-    serve.generate(params, cfg, prompts, max_new_tokens=2)  # warm-up
+    prefix_emb = (torch.randn((B, prefix, cfg.d_model), generator=gen,
+                              device="cuda").to(params.embed.dtype)
+                  if prefix else None)
+    serve.generate(params, cfg, prompts, max_new_tokens=2,
+                   prefix_emb=prefix_emb)                    # warm-up
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
 
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    res = serve.generate(params, cfg, prompts, max_new_tokens=new)
+    res = serve.generate(params, cfg, prompts, max_new_tokens=new,
+                         prefix_emb=prefix_emb)
     wall_s = time.perf_counter() - t0        # ends in a device->host copy
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
@@ -873,13 +946,14 @@ def generate_main_path(arch: str, B: int, S: int, new: int, expect: dict):
                                          5e-2)
     else:
         row, faults = prefill_parity(
-            params, cfg, prompts, S + new,
+            params, cfg, prompts, prefix + S + new,
             [k for k in ("flash_attention", "mamba_scan") if expect[k]],
-            5e-2)
+            5e-2, prefix_emb=prefix_emb)
     emit("generate", arch=cfg.name, dtype=cfg.dtype, layers=cfg.num_layers,
          d_model=cfg.d_model, params=cfg.param_count(), batch=B, prompt=S,
-         new_tokens=new, setup_s=setup_s, launches=launches,
-         expected_launches=expect, **gen_times(res, wall_s, B, S, new),
+         prefix=prefix, new_tokens=new, setup_s=setup_s, launches=launches,
+         expected_launches=expect,
+         **gen_times(res, wall_s, B, prefix + S, new),
          max_memory_allocated=peak, **row,
          first_tokens=[r[:8] for r in res.tokens])
     if {k: launches[k] for k in expect} != expect:
@@ -1269,12 +1343,13 @@ def phase_probe():
     return dict(launches, chunks=res.chunks, rows=res.rows)
 
 
-def run_training_family(label: str, argv):
+def run_training_family(label: str, argv, must_chunk: bool = True):
     """One ``launch.train.run`` of a non-dense family on the card, with
     the launch counts set to 0 just before and read just after.  Fails
     unless the losses and final parameters are finite, each gradstats
     kernel launched once per probe chunk and sweep, at least one probe
-    ran in row chunks, and neither flash nor the scan kernel launched
+    ran in row chunks (where ``must_chunk``: its G does not fit beside
+    the workers), and neither flash nor the scan kernel launched
     (training runs plain attention and the associative scan)."""
     from repro_torch.launch import train
 
@@ -1310,7 +1385,7 @@ def run_training_family(label: str, argv):
             == chunks > 0):
         faults.append(f"gradstats launches {launches} against {chunks} "
                       f"probe chunks")
-    if not any(c > 1 for _, _, c in probes):
+    if must_chunk and not any(c > 1 for _, _, c in probes):
         faults.append(f"no probe ran in row chunks: {probes}")
     if launches["flash_attention"] or launches["mamba_scan"]:
         faults.append(f"training launched a forward-only kernel: {launches}")
@@ -1331,24 +1406,33 @@ def run_training_family(label: str, argv):
 # update, more than the card has left at full width); the probes hold 4
 # rows of hymba's 1.66 B and 8 rows of the cut falcon's 1.38 B
 # parameters, more than the card has free beside the workers.
+# phi-3-vision-4.2b (4.15 B with f32 AdamW state does not fit either) is
+# cut to 8 of its 32 layers and trains text-only, as the JAX launcher
+# does; its probe may fit in one pass.  (label, argv, must_chunk)
 FAMILY_TRAIN = [
     ("hymba-1.5b", ["--arch", "hymba-1.5b", "--seq-len", "32",
                     "--trainers", "1", "--workers", "2", "--inner-steps",
                     "2", "--outer-steps", "3", "--initial-batch", "2",
-                    "--max-batch", "2", "--no-switch"]),
+                    "--max-batch", "2", "--no-switch"], True),
     ("falcon-mamba-7b", ["--arch", "falcon-mamba-7b", "--num-layers", "8",
                          "--seq-len", "32", "--trainers", "1", "--workers",
                          "2", "--inner-steps", "2", "--outer-steps", "3",
                          "--initial-batch", "8", "--max-batch", "8",
-                         "--no-switch"]),
+                         "--no-switch"], True),
+    ("phi-3-vision-4.2b", ["--arch", "phi-3-vision-4.2b", "--num-layers",
+                           "8", "--seq-len", "32", "--trainers", "1",
+                           "--workers", "2", "--inner-steps", "2",
+                           "--outer-steps", "3", "--initial-batch", "2",
+                           "--max-batch", "2", "--no-switch"], False),
 ]
 
 
 def phase_train_families():
-    """AdLoCo on the hybrid and SSM families through the launcher, bf16
-    with f32 AdamW state.  Returns the gradstats launches per run."""
-    return {label: run_training_family(label, argv)
-            for label, argv in FAMILY_TRAIN}
+    """AdLoCo on the hybrid, SSM and VLM families through the launcher,
+    bf16 with f32 AdamW state.  Returns the gradstats launches per
+    run."""
+    return {label: run_training_family(label, argv, must_chunk)
+            for label, argv, must_chunk in FAMILY_TRAIN}
 
 
 # (arch, prompts, prompt length, new tokens): every dense config the
@@ -1378,6 +1462,254 @@ def phase_generate_families():
         del held
         torch.cuda.empty_cache()
         out[arch] = launches
+    return out
+
+
+def phase_generate_vlm():
+    """``serve.generate`` on phi-3-vision-4.2b at full width in bf16: a
+    seeded 576-patch prefix before 2 prompts of 512 tokens, flash on the
+    tensor-core path once per layer (``generate_main_path``)."""
+    from repro_torch.configs import get_config
+
+    n = get_config("phi-3-vision-4.2b").num_layers
+    launches, held = generate_main_path(
+        "phi-3-vision-4.2b", 2, 512, 32,
+        {"flash_attention": n, "flash_attention_tc": n,
+         "flash_attention_fma": 0, "mamba_scan": 0}, prefix=576)
+    del held
+    torch.cuda.empty_cache()
+    return launches
+
+
+def encdec_inputs(cfg, B: int, S: int, dtype):
+    """Seeded frames (B, F, d) in ``dtype`` and prompts (B, S) on the
+    card."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    frames = torch.randn((B, cfg.num_prefix_tokens, cfg.d_model),
+                         generator=gen, device="cuda").to(dtype)
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                            device="cuda")
+    return frames, prompts
+
+
+def rel_gap(got, want, rel_tol: float):
+    """(max abs difference, tol = rel_tol * want's largest magnitude)."""
+    return ((got.float() - want.float()).abs().max().item(),
+            rel_tol * want.float().abs().max().item())
+
+
+@torch.inference_mode()
+def encdec_f32_tokens(new: int):
+    """whisper-small in f32: greedy tokens of ``generate`` with the
+    flash kernel (FMA path) against the plain encoder, row by row; a
+    divergence is excused only where the plain logits' top-2 gap at the
+    first divergent position is below 1e-3."""
+    from repro_torch import models, serve
+    from repro_torch.configs import get_config
+    from repro_torch.models import encdec
+
+    cfg = get_config("whisper-small").with_overrides(dtype="float32")
+    params = models.init_params(cfg, 0)
+    frames, prompts = encdec_inputs(cfg, 4, 4, torch.float32)
+    reset_counts()
+    got = serve.generate(params, cfg, prompts, max_new_tokens=new,
+                         frames=frames).tokens
+    launches = launch_counts()
+    with only_kernel(None):
+        want = serve.generate(params, cfg, prompts, max_new_tokens=new,
+                              frames=frames).tokens
+    enc = encdec.encode(params, frames, cfg)
+    excused = []
+    for b, (g, w) in enumerate(zip(got, want)):
+        i = _first_divergence(g, w)
+        if i is None:
+            continue
+        seq = torch.cat([prompts[b], torch.tensor(w[:i], device="cuda")])
+        logits = encdec.decode_forward(params, seq[None], enc[b:b + 1], cfg)
+        top2 = torch.topk(logits[0, -1].float(), 2).values
+        row = dict(row=b, position=i, top2_gap=(top2[0] - top2[1]).item())
+        if row["top2_gap"] >= 1e-3:
+            raise AssertionError(f"whisper-small f32: kernel and plain "
+                                 f"greedy tokens diverge away from a "
+                                 f"near-tie: {row}")
+        excused.append(row)
+    if launches["flash_attention_fma"] != cfg.encoder_layers \
+            or launches["flash_attention_tc"]:
+        raise AssertionError(f"whisper-small f32: flash must run the FMA "
+                             f"path once per encoder layer: {launches}")
+    del params
+    torch.cuda.empty_cache()
+    return dict(launches=launches, tokens_equal=got == want,
+                excused_near_ties=excused)
+
+
+@torch.inference_mode()
+def phase_generate_encdec():
+    """``serve.generate`` on whisper-small at full width in bf16 (seeded
+    random weights and frames): the encoder runs once (flash on the
+    tensor-core path once per encoder layer, counted from 0 just before
+    the call), the 4-token prompts are teacher-forced, then 32 greedy
+    tokens.  Kernel and plain encoder states, and the first logits,
+    within 5% of their largest magnitude; then the f32 token check
+    (``encdec_f32_tokens``).  Returns the launch counts."""
+    from repro_torch import models, serve
+    from repro_torch.configs import get_config
+    from repro_torch.models import encdec
+
+    B, S, new = 4, 4, 32
+    cfg = get_config("whisper-small")                       # bf16
+    t0 = time.perf_counter()
+    params = models.init_params(cfg, 0)
+    frames, prompts = encdec_inputs(cfg, B, S, params.embed.dtype)
+    serve.generate(params, cfg, prompts, max_new_tokens=2, frames=frames)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = serve.generate(params, cfg, prompts, max_new_tokens=new,
+                         frames=frames)
+    wall_s = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check_ids(res, cfg, B, new)
+    n = cfg.encoder_layers
+    expect = {"flash_attention": n, "flash_attention_tc": n,
+              "flash_attention_fma": 0, "mamba_scan": 0}
+
+    # bf16: kernel and plain encoders differ in where they round (the
+    # plain softmax's probabilities go to bf16 before the PV product)
+    enc_k = encdec.encode(params, frames, cfg, use_kernels=True)
+    enc_p = encdec.encode(params, frames, cfg, use_kernels=False)
+
+    def first_logits(use_kernels):
+        cache = encdec.init_cache(cfg, params, frames, S + 1,
+                                  use_kernels=use_kernels)
+        for t in range(S):
+            logits, cache = encdec.decode_step(params, cache, prompts[:, t],
+                                               t, cfg)
+        return logits
+
+    lk, lp = first_logits(True), first_logits(False)
+    enc_err, enc_tol = rel_gap(enc_k, enc_p, 5e-2)
+    log_err, log_tol = rel_gap(lk, lp, 5e-2)
+    f32 = encdec_f32_tokens(new)
+    emit("generate_encdec", arch=cfg.name, dtype=cfg.dtype,
+         encoder_layers=n, decoder_layers=cfg.num_layers,
+         d_model=cfg.d_model,
+         params=sum(p.numel() for p in params.parameters()), batch=B,
+         frames=cfg.num_prefix_tokens, prompt=S, new_tokens=new,
+         setup_s=setup_s, launches=launches, expected_launches=expect,
+         **gen_times(res, wall_s, B, cfg.num_prefix_tokens + S, new),
+         max_memory_allocated=peak, encoder_max_abs_err=enc_err, encoder_tol=enc_tol,
+         first_logits_max_abs_err=log_err, first_logits_tol=log_tol,
+         logits_finite=bool(torch.isfinite(lk).all()),
+         greedy_first_token_agrees=int(
+             (lk.argmax(-1) == lp.argmax(-1)).sum()),
+         f32=f32, first_tokens=[r[:8] for r in res.tokens])
+    faults = []
+    if {k: launches[k] for k in expect} != expect:
+        faults.append(f"generate launched {launches}, expected {expect}")
+    if not row_ok(enc_err, enc_tol) or not row_ok(log_err, log_tol) \
+            or not torch.isfinite(lk).all():
+        faults.append(f"kernel and plain differ: encoder {enc_err} (tol "
+                      f"{enc_tol}), first logits {log_err} (tol {log_tol})")
+    if faults:
+        raise AssertionError(f"{cfg.name}: {faults}")
+    del params, enc_k, enc_p
+    torch.cuda.empty_cache()
+    return launches
+
+
+def row_ok(err: float, tol: float) -> bool:
+    return math.isfinite(err) and err <= tol
+
+
+def inner_steps(label: str, cfg, batches):
+    """AdamW inner steps (``core.diloco.make_inner_step`` over
+    ``models.loss_fn``, no accumulation) on ``cfg`` at its width in
+    bf16 with f32 AdamW state, one per batch, with the launch counts
+    set to 0 just before and read just after.  Fails unless every loss
+    is finite, the parameters moved and stayed finite, and no kernel
+    launched (training runs attention on the plain path)."""
+    from repro_torch import models, optim
+    from repro_torch.core.diloco import make_inner_step
+    from repro_torch.models import lm
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    params = lm.param_dict(models.init_params(cfg, 0))
+    first = {k: v.clone() for k, v in params.items()}
+    opt = optim.adamw(3e-4)
+    state = opt.init(params)
+    step = make_inner_step(lambda p, b: models.loss_fn(p, b, cfg), opt, 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, device_ms = [], []
+    t0 = time.perf_counter()
+    for batch in batches:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, state, loss, _ = step(params, state, batch)
+        end.record()
+        end.synchronize()
+        losses.append(float(loss))
+        device_ms.append(start.elapsed_time(end))
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    moved = max((params[k].float() - first[k].float()).abs().max().item()
+                for k in params)
+    finite = all(bool(torch.isfinite(v.float()).all())
+                 for v in params.values())
+    batch = batches[0]
+    emit("train_inner", run=label, arch=cfg.name, dtype=cfg.dtype,
+         layers=cfg.num_layers,
+         params=sum(v.numel() for v in params.values()),
+         batch_shapes={k: list(v.shape) for k, v in batch.items()},
+         losses=losses, step_ms=device_ms, wall_s=wall,
+         max_memory_allocated=peak, max_param_change=moved,
+         final_params_finite=finite, launches=launches)
+    if not all(math.isfinite(x) for x in losses) or not finite \
+            or not moved > 0:
+        raise AssertionError(f"{label}: losses {losses}, params finite "
+                             f"{finite}, moved {moved}")
+    if any(launches.values()):
+        raise AssertionError(f"{label}: training launched a kernel: "
+                             f"{launches}")
+    del params, first, state
+    torch.cuda.empty_cache()
+    return dict(losses=losses, step_ms=device_ms, peak=peak)
+
+
+def phase_train_encdec_vlm():
+    """whisper-small at full width: 3 inner steps on 4 x (1500 seeded
+    frames, 128 tokens); phi-3-vision-4.2b cut to 8 layers (as in
+    ``FAMILY_TRAIN``): one inner step on 2 x (576-patch prefix, 128
+    tokens)."""
+    from repro_torch.configs import get_config
+
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    cfg = get_config("whisper-small")
+    batches = [{"frames": torch.randn(
+                    (1, 4, cfg.num_prefix_tokens, cfg.d_model),
+                    generator=gen, device="cuda").to(torch.bfloat16),
+                "tokens": torch.randint(0, cfg.vocab_size, (1, 4, 128),
+                                        generator=gen, device="cuda")}
+               for _ in range(3)]
+    out["whisper-small"] = inner_steps("whisper-small", cfg, batches)
+    cfg = get_config("phi-3-vision-4.2b").with_overrides(num_layers=8)
+    batches = [{"prefix_emb": torch.randn(
+                    (1, 2, cfg.num_prefix_tokens, cfg.d_model),
+                    generator=gen, device="cuda").to(torch.bfloat16),
+                "tokens": torch.randint(0, cfg.vocab_size, (1, 2, 128),
+                                        generator=gen, device="cuda")}]
+    out["phi-3-vision-4.2b@8"] = inner_steps("phi-3-vision-4.2b_prefix",
+                                             cfg, batches)
     return out
 
 
@@ -1645,6 +1977,13 @@ def main() -> int:
     probe_launches = timed("probe", phase_probe)
     family_train = timed("train_families", phase_train_families)
     family_serve = timed("generate_families", phase_generate_families)
+    encdec_launches = timed("generate_encdec", phase_generate_encdec)
+    vlm_launches = timed("generate_vlm", phase_generate_vlm)
+    timed("train_encdec_vlm", phase_train_encdec_vlm)
+    new_shapes = {"whisper_encoder": [4, 1500, 12, 12, 64],
+                  "phi3v_prefill": [2, 1088, 32, 32, 96]}
+    new_rows = {name: next(r for r in flash_rows if r["shape"] == shape)
+                for name, shape in new_shapes.items()}
     gemma = {("global" if r["window"] is None else f"window_{r['window']}"): r
              for r in flash_rows if r["shape"][4] == 256}
     kernels = [{
@@ -1659,6 +1998,12 @@ def main() -> int:
                       for r in flash_rows if r["shape"][2] == 25},
         "launches_families": {a: n["flash_attention_tc"]
                               for a, n in family_serve.items()},
+        "launches_encdec": encdec_launches["flash_attention_tc"],
+        "launches_vlm": vlm_launches["flash_attention_tc"],
+        **{name: {f: r[f] for f in ("shape", "causal", "max_abs_err",
+                                    "kernel_ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms")}
+           for name, r in new_rows.items()},
         "hd256": {k: {f: r[f] for f in ("shape", "max_abs_err", "kernel_ms",
                                         "plain_ms", "bound_ms", "bound_by",
                                         "library_ms")}

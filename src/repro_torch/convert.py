@@ -1,4 +1,5 @@
-"""Parameter conversion between the JAX package's pytree and ``DecoderLM``.
+"""Parameter conversion between the JAX package's pytree and the port's
+modules (``DecoderLM``, ``EncDecLM``).
 
 The JAX tree is nested dicts of numpy arrays with the layers stacked on
 a leading L axis (``jax.device_get(repro.models.init_params(...))``).
@@ -11,7 +12,9 @@ Leaves are cast to the model dtype, except those that the JAX init
 keeps in f32 in any model, which stay f32 both ways: the Mamba leaves
 (``layers.MAMBA_F32_LEAVES``: dt_b, A_log, D) and the MoE router
 (``layers.MOE_F32_LEAVES``).  The layer trees of every family the port
-runs (dense, moe, ssm, hybrid) convert with the same walk.
+runs (dense, moe, ssm, hybrid, vlm, and the encoder-decoder's two
+stacks, ``enc_layers`` and ``dec_layers``, with their MLP biases)
+convert with the same walk; both functions dispatch on the config.
 """
 from __future__ import annotations
 
@@ -22,8 +25,9 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import encdec, lm
 from repro_torch.models.layers import MAMBA_F32_LEAVES, MOE_F32_LEAVES
-from repro_torch.models.lm import DecoderLM, _dtype, _nest
+from repro_torch.models.lm import _dtype
 
 
 def _to_tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
@@ -52,20 +56,25 @@ def _unstack(tree, i: int, dtype, device, path=()):
     return _to_tensor(np.asarray(tree)[i], _leaf_dtype(path, dtype), device)
 
 
-def params_from_numpy(tree: Dict, cfg: ModelConfig, device=None) -> DecoderLM:
-    """JAX parameter pytree (numpy leaves, stacked layers) -> DecoderLM
-    in ``cfg.dtype`` on ``device`` (``cuda`` unless named)."""
+def params_from_numpy(tree: Dict, cfg: ModelConfig, device=None):
+    """JAX parameter pytree (numpy leaves, stacked layers) -> DecoderLM,
+    or EncDecLM for an encoder-decoder config, in ``cfg.dtype`` on
+    ``device`` (``cuda`` unless named)."""
     dev = resolve_device(device)
     dt = _dtype(cfg)
-    out = {
-        "embed": _to_tensor(tree["embed"], dt, dev),
-        "layers": [_unstack(tree["layers"], i, dt, dev)
-                   for i in range(cfg.num_layers)],
-        "final_norm": _to_tensor(tree["final_norm"], dt, dev),
-    }
-    if not cfg.tie_embeddings:
-        out["lm_head"] = _to_tensor(tree["lm_head"], dt, dev)
-    return DecoderLM(cfg, out)
+    if cfg.is_encoder_decoder:
+        stacks = {"enc_layers": cfg.encoder_layers,
+                  "dec_layers": cfg.num_layers}
+        norms = ("embed", "enc_norm", "final_norm")
+    else:
+        stacks = {"layers": cfg.num_layers}
+        norms = ("embed", "final_norm") + (
+            () if cfg.tie_embeddings else ("lm_head",))
+    out = {k: _to_tensor(tree[k], dt, dev) for k in norms}
+    out.update({k: [_unstack(tree[k], i, dt, dev) for i in range(n)]
+                for k, n in stacks.items()})
+    return (encdec.EncDecLM if cfg.is_encoder_decoder
+            else lm.DecoderLM)(cfg, out)
 
 
 def _numpy(t: torch.Tensor) -> np.ndarray:
@@ -82,8 +91,13 @@ def _stack(layer_trees):
     return np.stack(layer_trees)
 
 
-def params_to_numpy(params: DecoderLM) -> Dict:
-    """DecoderLM -> the JAX pytree layout (numpy leaves, stacked layers)."""
-    tree = _nest({k: _numpy(t) for k, t in params.named_parameters()})
-    tree["layers"] = _stack(tree["layers"])
+def params_to_numpy(params) -> Dict:
+    """DecoderLM or EncDecLM -> the JAX pytree layout (numpy leaves,
+    stacked layers)."""
+    flat = {k: _numpy(t) for k, t in params.named_parameters()}
+    stacks = (encdec._STACKS if params.cfg.is_encoder_decoder
+              else ("layers",))
+    tree = lm._nest(flat, stacks)
+    for k in stacks:
+        tree[k] = _stack(tree[k])
     return tree

@@ -7,14 +7,23 @@ Serving: ``serve.generate``'s two phases at the main path's shapes
 one prefill (flash kernel on) and the greedy decode steps; then the SSM
 and hybrid serving paths at ``chip_smoke.py``'s shapes (falcon-mamba-7b,
 bf16, 4 prompts of 512 tokens; hymba-1.5b, bf16, 2 prompts of 1536
-tokens) — one prefill (kernels on) and one decode step each.  Training:
+tokens) — one prefill (kernels on) and one decode step each; the
+encoder-decoder and the VLM at ``chip_smoke.py``'s shapes
+(whisper-small, bf16, 4 x 1500 frames: the encoder and cross k/v of
+``models.init_cache`` with the flash kernel on, then one decode step
+after a teacher-forced 4-token prompt; phi-3-vision-4.2b, bf16, a
+576-patch prefix before 2 prompts of 512 tokens: one prefill (kernels
+on) and one decode step).  Training:
 the phases of one AdLoCo trainer round at the training main path's
 shapes (microllama-300m, bf16 with f32 AdamW state, seq 128, batch 8,
 M = 2 workers) — one inner step, the per-sample gradients of a probe of
 8, their gradstats reduction (kernels on), and the outer step.
 
-Each phase runs under ``torch.profiler`` on seeded random weights, after
-one warm-up call, and prints one JSON line: host wall time, device busy
+Each phase runs under ``torch.profiler`` on seeded random weights: one
+session per phase, whose schedule runs a warm-up call that it discards
+and then records one call (a session that records from its start
+loses the device records of its first kernels).  Each
+prints one JSON line: host wall time, device busy
 time (the union of the phase's CUDA kernel intervals), the device's idle
 share of the phase's window, launches per step, and the kernels with the
 most device time and the host ops with the most self CPU time.  Needs a
@@ -56,6 +65,10 @@ ARCH, BATCH, PROMPT, NEW, TOP = "microllama-300m", 4, 512, 32, 8
 RECURRENT = (("falcon-mamba-7b", 4, 512, "ssm"),
              ("hymba-1.5b", 2, 1536, "hybrid"))
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_WORKERS = 128, 8, 2
+# (arch, batch, frames, prompt) of the encoder-decoder path and (arch,
+# batch, prefix, prompt) of the VLM path, as in chip_smoke.py
+ENCDEC = ("whisper-small", 4, 1500, 4)
+VLM = ("phi-3-vision-4.2b", 2, 576, 512)
 # the port's kernels: the names their traces carry, by launch counter
 TRACED_KERNELS = {"flash_attention": ("flash_tc_kernel", "flash_fwd_kernel"),
                   "mamba_scan": ("scan_kernel",),
@@ -70,9 +83,15 @@ def launch_counts() -> dict:
             "gradstats_moments": gradstats_ops.moments_launches}
 
 
+# the schedule's step range, which the trace mirrors on the device
+# timeline as an annotation spanning the step's kernels: not a kernel
+STEP_ANNOTATION = "ProfilerStep"
+
+
 def _kernel_events(prof):
     return [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.name.startswith(STEP_ANNOTATION)]
 
 
 def _busy_us(intervals) -> float:
@@ -143,7 +162,7 @@ def run():
 
     row, (logits, cache) = _profiled("prefill", lambda: models.prefill(
         params, prompts, cfg, PROMPT + NEW, use_kernels=True,
-        last_only=True), warmup=False)
+        last_only=True))
     yield row
 
     def decode():
@@ -153,7 +172,7 @@ def run():
                                           cfg)
             tok = torch.argmax(out_i, dim=-1)
 
-    yield _profiled("decode", decode, NEW - 1, warmup=False)[0]
+    yield _profiled("decode", decode, NEW - 1)[0]
 
 
 @torch.inference_mode()
@@ -185,21 +204,106 @@ def run_recurrent(arch: str, batch: int, prompt: int, name: str):
     torch.cuda.empty_cache()
 
 
-def _profiled(name: str, fn, steps: int = 1, warmup: bool = True):
-    """Warm ``fn`` up once (unless ``warmup`` is off), then profile one
-    call; returns (summary, fn's result).  The summary raises if the
-    trace lacks the kernels the launch counters saw (``check_trace``)."""
-    if warmup:
+@torch.inference_mode()
+def run_encdec():
+    """whisper-small at full width, bf16: the encoder and cross k/v
+    (``models.init_cache``, flash on), then one decode step after the
+    prompt is teacher-forced; each after a warm-up."""
+    arch, batch, n_frames, prompt = ENCDEC
+    dev = resolve_device()
+    cfg = get_config(arch)
+    params = models.init_params(cfg, 0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    frames = torch.randn((batch, n_frames, cfg.d_model), generator=gen,
+                         device=dev).to(params.embed.dtype)
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt),
+                            generator=gen, device=dev)
+    cache_len = prompt + NEW
+
+    def encode():
+        return models.init_cache(cfg, params, batch, cache_len,
+                                 frames=frames, use_kernels=True)
+
+    row, cache = _profiled("encdec_encoder", encode)
+    yield row
+    for t in range(prompt):
+        logits, cache = models.decode_step(params, cache, prompts[:, t], t,
+                                           cfg)
+    tok = torch.argmax(logits, dim=-1)
+    step = iter(range(prompt, prompt + NEW))
+
+    def decode():
+        out, _ = models.decode_step(params, cache, tok, next(step), cfg)
+        return torch.argmax(out, dim=-1)
+
+    yield _profiled("encdec_decode_step", decode)[0]
+    del params, cache
+    torch.cuda.empty_cache()
+
+
+@torch.inference_mode()
+def run_vlm():
+    """phi-3-vision-4.2b at full width, bf16: one prefill of the prefix
+    and the prompts (kernels on) and one greedy decode step, each after
+    a warm-up."""
+    arch, batch, n_prefix, prompt = VLM
+    dev = resolve_device()
+    cfg = get_config(arch)
+    params = models.init_params(cfg, 0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt),
+                            generator=gen, device=dev)
+    prefix = torch.randn((batch, n_prefix, cfg.d_model), generator=gen,
+                         device=dev).to(params.embed.dtype)
+    total = n_prefix + prompt
+
+    def prefill():
+        return models.prefill(params, prompts, cfg, total + NEW,
+                              prefix_emb=prefix, use_kernels=True,
+                              last_only=True)
+
+    row, (logits, cache) = _profiled("vlm_prefill", prefill)
+    yield row
+    tok = torch.argmax(logits[:, -1], dim=-1)
+    step = iter(range(total, total + NEW))
+
+    def decode():
+        out, _ = models.decode_step(params, cache, tok, next(step), cfg)
+        return torch.argmax(out, dim=-1)
+
+    yield _profiled("vlm_decode_step", decode)[0]
+    del params, cache
+    torch.cuda.empty_cache()
+
+
+def _record(fn):
+    """Profile one call of ``fn`` -> (prof, fn's result, wall seconds,
+    launch counter deltas of that call).  The session runs a warm-up
+    step of ``fn`` whose trace is discarded, then the recorded step
+    (``torch.profiler.schedule``): on the card a session that recorded
+    from its start held no device record of its first kernels."""
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    sched = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    with profile(activities=acts, schedule=sched) as prof:
         fn()
-    torch.cuda.synchronize()
-    before = launch_counts()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        prof.step()
+        before = launch_counts()
         t0 = time.perf_counter()
         result = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    launched = {k: n - before[k] for k, n in launch_counts().items()}
+        launched = {k: n - before[k] for k, n in launch_counts().items()}
+        prof.step()
+    return prof, result, wall, launched
+
+
+def _profiled(name: str, fn, steps: int = 1):
+    """Profile one call of ``fn`` after a warm-up call in the same
+    session (``_record``); returns (summary, fn's result).  The summary
+    raises if the trace lacks the kernels the launch counters saw
+    (``check_trace``)."""
+    prof, result, wall, launched = _record(fn)
     return summarize(prof, name, wall, steps, launched), result
 
 
@@ -250,7 +354,8 @@ def main() -> int:
                          capture_output=True, text=True).stdout.strip()
     print(json.dumps({"nvidia_smi": smi, "torch": torch.__version__}),
           flush=True)
-    phases = [run()] + [run_recurrent(*spec) for spec in RECURRENT]
+    phases = ([run()] + [run_recurrent(*spec) for spec in RECURRENT]
+              + [run_encdec(), run_vlm()])
     for rows in phases + [run_training()]:
         for row in rows:              # each printed as its phase ends
             print(json.dumps(row), flush=True)

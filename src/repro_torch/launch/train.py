@@ -12,9 +12,13 @@ over eager steps on the one device.  The batch statistics run through
 the gradstats kernels (``stats_use_kernel=True``); attention runs on
 the plain path, as in the JAX package's training, and the Mamba blocks'
 selective scan the associative scan through autograd (the CUDA scan
-kernel is forward-only).  It trains the dense, moe, ssm and hybrid
-families; encoder-decoder and VLM models raise ``NotImplementedError``
-(``models.lm``).  After the run, one ``[train] stats probe`` line per
+kernel is forward-only).  It trains the dense, moe, ssm, hybrid and
+vlm families; a VLM (phi-3-vision-4.2b) trains text-only, as the JAX
+launcher does, since the token streams carry no prefix.  An
+encoder-decoder (whisper-small) raises ``NotImplementedError`` before
+any init: its loss needs encoder frames in every batch, which the
+streams do not make (the JAX launcher fails there with
+``KeyError: 'frames'``).  After the run, one ``[train] stats probe`` line per
 round that ran the per-sample probe gives its B and, where G did not
 fit the card, the rows per chunk (``batching.per_sample_probe``).
 """
@@ -87,6 +91,11 @@ def parse_args(argv=None):
 def make_configs(args):
     """(ModelConfig, AdLoCoConfig) of the parsed flags."""
     cfg = get_config(args.arch)
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            f"{cfg.name} is an encoder-decoder: its loss needs encoder "
+            "frames in every batch, and the launcher's token streams make "
+            "none (the JAX launcher fails with KeyError: 'frames')")
     lm.check_arch(cfg)
     if args.reduced:
         cfg = reduced(cfg)

@@ -1,8 +1,8 @@
-"""Building blocks of the decoder families the port runs, in PyTorch.
+"""Building blocks of the model families the port runs, in PyTorch.
 
-Port of ``repro/models/layers.py`` for the dense, MoE, SSM and hybrid
-families (attention, SwiGLU MLP, the capacity-dispatched MoE block, the
-Mamba-1 selective SSM): plain
+Port of ``repro/models/layers.py`` for every family the port runs
+(attention, SwiGLU MLP, the encoder-decoder's GELU MLP, the
+capacity-dispatched MoE block, the Mamba-1 selective SSM): plain
 functions on tensors, with a parameter group ``p`` passed as a mapping
 (an ``nn.ParameterDict`` or a dict of tensors).  Weights keep the JAX
 package's ``(d_in, d_out)`` orientation, so every projection is
@@ -80,6 +80,12 @@ def apply_rope(x, cos, sin):
 
 def swiglu(x, gate_w, up_w, down_w):
     return (F.silu(x @ gate_w) * (x @ up_w)) @ down_w
+
+
+def gelu_mlp(x, up_w, up_b, down_w, down_b):
+    """The encoder-decoder's MLP.  ``jax.nn.gelu`` defaults to the tanh
+    approximation, so this takes it too (torch's default is exact)."""
+    return F.gelu(x @ up_w + up_b, approximate="tanh") @ down_w + down_b
 
 
 # --------------------------------------------------------------------

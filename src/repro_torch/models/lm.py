@@ -1,16 +1,18 @@
-"""Decoder-only language model in PyTorch: dense, MoE, SSM and hybrid.
+"""Decoder-only language model in PyTorch: dense, MoE, SSM, hybrid, VLM.
 
-Port of ``repro/models/lm.py`` for four families: ``dense`` (attention
+Port of ``repro/models/lm.py`` for five families: ``dense`` (attention
 + SwiGLU MLP), ``moe`` (attention + a capacity-dispatched MoE block in
 place of the MLP: deepseek-moe-16b, grok-1-314b), ``ssm`` (a Mamba
-block per layer, attention-free: falcon-mamba-7b) and ``hybrid``
+block per layer, attention-free: falcon-mamba-7b), ``hybrid``
 (attention and Mamba heads in parallel on the same normed input,
-averaged, then the MLP: hymba-1.5b).
+averaged, then the MLP: hymba-1.5b) and ``vlm`` (the dense decoder
+with P stub patch embeddings ``prefix_emb`` (B, P, d) in front of the
+token embeddings, at positions 0 .. P-1: phi-3-vision-4.2b).
 ``DecoderLM`` holds the parameters (an ``nn.ModuleList`` of
 ``DecoderLayer``s, weights in JAX's ``(d_in, d_out)`` orientation); the
 entry points below are plain functions over it, as in the JAX package,
-with a Python loop over the layers where JAX scans.  VLM/audio prefixes
-and encoder-decoder models raise ``NotImplementedError``.
+with a Python loop over the layers where JAX scans.  Encoder-decoder
+models (whisper-small) are ``models.encdec``'s.
 
 The MoE block routes as JAX does per entry point: ``forward`` /
 ``loss_fn`` and ``prefill_chunk_paged`` follow ``cfg.moe.dispatch``
@@ -67,16 +69,23 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
     return _DTYPES[cfg.dtype]
 
 
-_ARCHS = ("dense", "moe", "ssm", "hybrid")
+_ARCHS = ("dense", "moe", "ssm", "hybrid", "vlm")
 
 
 def check_arch(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for a family the port does not run."""
-    if (cfg.arch_type not in _ARCHS or cfg.is_encoder_decoder
-            or cfg.frontend is not None or cfg.num_prefix_tokens):
+    """Raise NotImplementedError for a config this decoder-only model
+    does not run: an encoder-decoder (``models.encdec`` runs those), or
+    a prefix frontend outside the ``vlm`` family."""
+    if cfg.is_encoder_decoder:
         raise NotImplementedError(
-            f"the PyTorch port runs dense, moe, ssm and hybrid decoders; "
-            f"{cfg.name} is {cfg.arch_type!r}")
+            f"{cfg.name} is an encoder-decoder: models.encdec runs it, "
+            f"models.lm runs the decoder-only families {_ARCHS}")
+    if cfg.arch_type not in _ARCHS or (
+            cfg.arch_type != "vlm"
+            and (cfg.frontend is not None or cfg.num_prefix_tokens)):
+        raise NotImplementedError(
+            f"models.lm runs the decoder-only families {_ARCHS} (a prefix "
+            f"frontend only in vlm); {cfg.name} is {cfg.arch_type!r}")
 
 
 def _has_attn(cfg: ModelConfig) -> bool:
@@ -102,14 +111,17 @@ _LAYER_KEYS = ("norm", "attn_norm", "attn", "mamba", "mlp_norm", "moe",
 class DecoderLayer(nn.Module):
     """One pre-norm block, from the JAX layer tree: attention + SwiGLU
     MLP (dense) or MoE block (moe), a Mamba block (ssm), or both heads
-    and the MLP (hybrid)."""
+    and the MLP (hybrid).  ``KEYS``: the parameter groups it takes, in
+    registration order."""
+
+    KEYS = _LAYER_KEYS
 
     def __init__(self, tree: Dict):
         super().__init__()
-        unknown = set(tree) - set(_LAYER_KEYS)
+        unknown = set(tree) - set(self.KEYS)
         if unknown:
             raise ValueError(f"unknown layer parameters {sorted(unknown)}")
-        for key in _LAYER_KEYS:
+        for key in self.KEYS:
             if key not in tree:
                 continue
             leaf = tree[key]
@@ -152,8 +164,9 @@ def param_dict(params: DecoderLM) -> Dict[str, torch.Tensor]:
     return {k: p.detach() for k, p in params.named_parameters()}
 
 
-def _nest(flat: Dict[str, torch.Tensor]) -> Dict:
-    """{"layers.0.attn.q": t, ...} -> the tree ``DecoderLM`` takes."""
+def _nest(flat: Dict[str, torch.Tensor], stacks=("layers",)) -> Dict:
+    """{"layers.0.attn.q": t, ...} -> the tree ``DecoderLM`` takes (each
+    of ``stacks`` a list of layer trees)."""
     tree: Dict = {}
     for name, t in flat.items():
         *path, leaf = name.split(".")
@@ -161,8 +174,8 @@ def _nest(flat: Dict[str, torch.Tensor]) -> Dict:
         for part in path:
             node = node.setdefault(part, {})
         node[leaf] = t
-    tree["layers"] = [tree["layers"][str(i)]
-                      for i in range(len(tree["layers"]))]
+    for key in stacks:
+        tree[key] = [tree[key][str(i)] for i in range(len(tree[key]))]
     return tree
 
 
@@ -243,10 +256,15 @@ def _decode_window(cfg: ModelConfig, is_global: bool):
     return L.GLOBAL_WINDOW if is_global else cfg.sliding_window
 
 
-def _embed(params: DecoderLM, tokens, cfg: ModelConfig):
+def _embed(params: DecoderLM, tokens, cfg: ModelConfig, prefix_emb=None):
+    """Token embeddings (B, S, d) times sqrt(d), with ``prefix_emb``
+    (B, P, d), cast to the model dtype, in front when given."""
     # the sqrt(d) scale is rounded to the model dtype first, as in JAX
     scale = torch.tensor(math.sqrt(cfg.d_model), dtype=params.embed.dtype)
-    return params.embed[tokens] * scale
+    x = params.embed[tokens] * scale
+    if prefix_emb is None:
+        return x
+    return torch.cat([prefix_emb.to(x.dtype), x], dim=1)
 
 
 def _head_weight(params: DecoderLM, cfg: ModelConfig):
@@ -306,12 +324,12 @@ def _layer_apply(layer: DecoderLayer, x, cfg: ModelConfig, is_global: bool,
 # --------------------------------------------------------------------
 
 def backbone(params: DecoderLM, tokens, cfg: ModelConfig, *,
-             use_kernels: bool = False):
-    """tokens (B,S) -> (final hidden states (B, S, d) after the final
+             prefix_emb=None, use_kernels: bool = False):
+    """tokens (B,S) -> (final hidden states (B, P+S, d) after the final
     norm, aux): aux is the MoE layers' load-balance losses summed (0
-    without MoE).  The JAX ``prefix_emb`` (VLM/audio stub embeddings)
-    belongs to families the port does not run yet."""
-    x = _embed(params, tokens, cfg)
+    without MoE).  ``prefix_emb``: (B, P, d) stub embeddings (VLM
+    patches) in front of the tokens; P = 0 without it."""
+    x = _embed(params, tokens, cfg, prefix_emb)
     positions = torch.arange(x.shape[1], device=x.device)
     aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer, g in zip(params.layers, layer_is_global(cfg)):
@@ -322,9 +340,10 @@ def backbone(params: DecoderLM, tokens, cfg: ModelConfig, *,
 
 
 def forward(params: DecoderLM, tokens, cfg: ModelConfig, *,
-            use_kernels: bool = False):
-    """tokens (B,S) -> (logits (B, S, V), aux)."""
-    x, aux = backbone(params, tokens, cfg, use_kernels=use_kernels)
+            prefix_emb=None, use_kernels: bool = False):
+    """tokens (B,S) -> (logits (B, P+S, V), aux)."""
+    x, aux = backbone(params, tokens, cfg, prefix_emb=prefix_emb,
+                      use_kernels=use_kernels)
     return x @ _head_weight(params, cfg), aux
 
 
@@ -350,25 +369,26 @@ def chunked_ce(x, head, tokens, P: int, chunk: int):
 
 def loss_fn(params: DecoderLM, batch, cfg: ModelConfig, *,
             logit_chunk: Optional[int] = None):
-    """Next-token cross-entropy.  batch: {"tokens": (B,S) int}.
+    """Next-token cross-entropy.  batch: {"tokens": (B,S) int} and, for
+    the VLM, "prefix_emb" (B, P, d).
 
-    Returns (loss, metrics): the mean over predicted positions plus the
-    MoE aux term (the layers' load-balance losses summed, over the layer
-    count; zero without MoE).
+    Returns (loss, metrics): the mean over predicted positions (tokens
+    1 .. S-1, from positions P .. P+S-2) plus the MoE aux term (the
+    layers' load-balance losses summed, over the layer count; zero
+    without MoE).
     ``logit_chunk``: compute the CE in sequence chunks of this size.
     Attention runs on the plain path (JAX training builds its loss with
     ``use_kernels=False``; the flash kernel has no backward)."""
-    if "prefix_emb" in batch:
-        raise NotImplementedError("prefix_emb belongs to families the "
-                                  "port does not run yet")
     tokens = batch["tokens"]
+    prefix = batch.get("prefix_emb")
+    P = 0 if prefix is None else prefix.shape[1]
     head = _head_weight(params, cfg)
     if logit_chunk is not None:
-        x, aux = backbone(params, tokens, cfg)
-        ce = chunked_ce(x, head, tokens, 0, logit_chunk)
+        x, aux = backbone(params, tokens, cfg, prefix_emb=prefix)
+        ce = chunked_ce(x, head, tokens, P, logit_chunk)
     else:
-        logits, aux = forward(params, tokens, cfg)
-        pred = logits[:, :-1].float()                  # predicts tokens[1:]
+        logits, aux = forward(params, tokens, cfg, prefix_emb=prefix)
+        pred = logits[:, P:-1].float()                 # predicts tokens[1:]
         logz = torch.logsumexp(pred, dim=-1)
         gold = torch.gather(pred, -1, tokens[:, 1:, None].long())[..., 0]
         ce = torch.mean(logz - gold)
@@ -388,10 +408,13 @@ def _ring_scatter(kv, S_total: int, C: int):
 
 
 def prefill(params: DecoderLM, tokens, cfg: ModelConfig, cache_len: int, *,
-            use_kernels: bool = False, last_only: bool = False):
-    """Forward pass that also fills the KV cache.  Returns (logits
-    (B, S, V), cache); ``last_only=True`` computes the final position's
-    logits only (shape (B, 1, V)).
+            prefix_emb=None, use_kernels: bool = False,
+            last_only: bool = False):
+    """Forward pass that also fills the KV cache with the P + S
+    positions of ``prefix_emb`` (B, P, d; P = 0 without it) and the
+    tokens (B, S).  Returns (logits (B, P+S, V), cache);
+    ``last_only=True`` computes the final position's logits only (shape
+    (B, 1, V)).
 
     ``use_kernels=True`` runs attention through
     ``kernels.flash_attention.ops.flash_attention`` and the Mamba scan
@@ -400,8 +423,8 @@ def prefill(params: DecoderLM, tokens, cfg: ModelConfig, cache_len: int, *,
     Without it the Mamba blocks run the sequential scan
     (``layers.ssm_scan_seq``), JAX prefill's default.  The Mamba blocks
     also return their decode state from the same scan."""
-    B, S_total = tokens.shape
-    x = _embed(params, tokens, cfg)
+    x = _embed(params, tokens, cfg, prefix_emb)
+    B, S_total = x.shape[:2]
     positions = torch.arange(S_total, device=x.device)
     cache: Dict[str, list] = {}
 

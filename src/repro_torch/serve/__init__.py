@@ -15,7 +15,8 @@ Where the port differs from the JAX package, on purpose:
 
 * Prefill runs with ``use_kernels=True``, so on the card attention goes
   through the hand-written flash kernel and the Mamba scan (SSM and
-  hybrid models) through the hand-written selective-scan kernel.  The
+  hybrid models) through the hand-written selective-scan kernel; an
+  encoder-decoder's encoder (``models.init_cache``) runs flash too.  The
   JAX serving entry points leave ``use_kernels`` off and run ``sdpa``
   and the sequential scan; both compute the same function.
 * Sampling streams.  JAX's ``fold_in`` bits cannot be matched.  Every
@@ -101,45 +102,71 @@ def sample(logits, gens: Sequence[Optional[torch.Generator]],
 def generate(params, cfg: ModelConfig, prompts, *,
              max_new_tokens: int = 32, temperature: float = 0.0,
              cache_len: Optional[int] = None, seed: int = 0,
+             frames=None, prefix_emb=None,
              ring: bool = False) -> GenerationResult:
     """prompts: (B, S_prompt) ints.  Greedy/temperature batched decode on
     ``params``' device.
 
-    The decode chain needs ``prompt + max_new_tokens`` cache positions;
-    a smaller ``cache_len`` raises ``ValueError`` unless ``ring=True``,
-    which opts into the ring-buffer semantics the cache implements
-    (position p lives in slot p % cache_len): attention then sees only
-    the most recent ``cache_len`` positions."""
-    prompts = torch.as_tensor(prompts, dtype=torch.long, device=params.device)
+    ``frames`` (B, F, d): an encoder-decoder's encoder input; its cache
+    runs the encoder once (flash kernel on), then the prompt is
+    teacher-forced through decode steps at positions 0 .. S-1.
+    ``prefix_emb`` (B, P, d): a VLM's stub patch embeddings, prefilled in
+    front of the prompt (positions 0 .. P-1); decoding starts at P + S.
+
+    The decode chain needs ``prefix + prompt + max_new_tokens`` cache
+    positions; a smaller ``cache_len`` raises ``ValueError`` unless
+    ``ring=True``, which opts into the ring-buffer semantics the cache
+    implements (position p lives in slot p % cache_len): attention then
+    sees only the most recent ``cache_len`` positions.  On the card
+    ``prefill_ms`` covers everything up to the first token: the prefill,
+    or the encoder and the teacher-forced prompt."""
+    dev = params.device
+    prompts = torch.as_tensor(prompts, dtype=torch.long, device=dev)
     B, S = prompts.shape
-    need = S + max_new_tokens
+    if prefix_emb is not None:
+        prefix_emb = torch.as_tensor(prefix_emb, device=dev)
+    P = 0 if prefix_emb is None else prefix_emb.shape[1]
+    need = P + S + max_new_tokens
     C = cache_len or need
     if C < need and not ring:
         raise ValueError(
-            f"cache_len={C} < prompt+max_new_tokens={need}: the cache "
-            "would silently wrap; pass ring=True to opt into "
+            f"cache_len={C} < prefix+prompt+max_new_tokens={need}: the "
+            "cache would silently wrap; pass ring=True to opt into "
             f"sliding-window (last {C} positions) attention")
+    if cfg.is_encoder_decoder and frames is None:
+        raise ValueError(f"{cfg.name} is an encoder-decoder: generate "
+                         "needs its encoder frames")
     marks = ([torch.cuda.Event(enable_timing=True) for _ in range(3)]
              if prompts.is_cuda else [])
     if marks:
         marks[0].record()
-    logits_all, cache = models.prefill(params, prompts, cfg, C,
-                                       use_kernels=True, last_only=True)
+    if cfg.is_encoder_decoder:
+        cache = models.init_cache(cfg, params, B, C, frames=frames,
+                                  use_kernels=True)
+        for t in range(S):           # teacher-force the prompt
+            logits, cache = models.decode_step(params, cache, prompts[:, t],
+                                               t, cfg)
+    else:
+        logits_all, cache = models.prefill(params, prompts, cfg, C,
+                                           prefix_emb=prefix_emb,
+                                           use_kernels=True, last_only=True)
+        logits = logits_all[:, -1]
 
     def draw(logits, n):
-        gens = ([stream(seed, b, n, prompts.device) for b in range(B)]
+        gens = ([stream(seed, b, n, dev) for b in range(B)]
                 if temperature > 0 else [None] * B)
         return sample(logits, gens, temperature)
 
-    tok = draw(logits_all[:, -1], 0)
+    tok = draw(logits, 0)
     if marks:
         marks[1].record()
     out = []
+    pos0 = P + S
     for i in range(max_new_tokens):
         out.append(tok)
         if i + 1 == max_new_tokens:      # the last token needs no decode
             break
-        logits, cache = models.decode_step(params, cache, tok, S + i, cfg)
+        logits, cache = models.decode_step(params, cache, tok, pos0 + i, cfg)
         tok = draw(logits, i + 1)
     if marks:
         marks[2].record()

@@ -34,8 +34,9 @@ independent of scheduling and preemption; the dense arm's prefill runs
 with ``use_kernels=True`` (the flash and scan kernels on the card);
 cache writes (the dense slot rows, the paged scatters, the SSM lane
 state) are in place; every tick runs under ``torch.inference_mode()``;
-a request that does not fit raises ``ValueError`` (JAX asserts).  Both
-batchers serve every family ``models`` runs: dense, SSM and hybrid.  An
+a request that does not fit raises ``ValueError`` (JAX asserts), and so
+does an encoder-decoder config.  Both batchers serve every decoder-only
+family ``models`` runs (a VLM text-only: requests carry no prefix).  An
 SSM request's prompt still claims paged blocks in ``ContinuousBatcher``
 (the host accounting is the JAX package's), though only attention
 writes them.
@@ -102,6 +103,9 @@ class _BatcherBase:
     """Queue / budget / metrics machinery shared by both batchers."""
 
     def __init__(self, params, cfg: ModelConfig, n_lanes: int, seed: int):
+        if cfg.is_encoder_decoder:
+            raise ValueError(f"{cfg.name} is an encoder-decoder: the "
+                             "batchers serve decoder-only models")
         self.params = params
         self.device = params.device
         self.cfg = cfg

@@ -144,6 +144,6 @@ def test_cli_runs_to_the_end_and_resumes(tmp_path, capsys):
 
 
 def test_cli_rejects_other_families():
-    with pytest.raises(NotImplementedError, match="dense"):
+    with pytest.raises(NotImplementedError, match="frames"):
         launch_train.main(["--arch", "whisper-small", "--reduced",
                            "--device", "cpu", "--outer-steps", "1"])

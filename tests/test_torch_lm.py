@@ -196,5 +196,5 @@ def test_paged_chunked_prefill_then_decode():
 
 
 def test_other_families_raise():
-    with pytest.raises(NotImplementedError, match="dense"):
+    with pytest.raises(NotImplementedError, match="models.encdec"):
         lm.init_params(reduced(get_config("whisper-small")), device="cpu")

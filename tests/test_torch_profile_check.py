@@ -6,6 +6,7 @@ itself needs the card; its trace check runs here on stand-in events.)
 from types import SimpleNamespace
 
 import pytest
+import torch
 
 from repro_torch.launch import profile
 
@@ -38,3 +39,16 @@ def test_trace_with_every_counted_launch_passes():
     counted = dict(flash_attention=2, mamba_scan=1, gradstats_colsum=1,
                    gradstats_moments=1)
     assert profile.check_trace(kernels, "phase", counted) == counted
+
+
+def test_step_annotation_is_not_a_kernel():
+    """A scheduled session mirrors its step range on the device timeline;
+    it spans every kernel of the step and would read as a busy device."""
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    events = [SimpleNamespace(name="ProfilerStep*", device_type=cuda),
+              SimpleNamespace(name="void colsum_kernel<float>(...)",
+                              device_type=cuda),
+              SimpleNamespace(name="aten::mm", device_type=cpu)]
+    prof = SimpleNamespace(events=lambda: events)
+    assert [e.name for e in profile._kernel_events(prof)] == [
+        "void colsum_kernel<float>(...)"]
