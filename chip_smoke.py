@@ -80,6 +80,24 @@ any failure raises and exits non-zero:
      events say.  Per run: simulated sim/compute/comm time, wall time,
      wall ms per round, peak memory, gradstats launches.
 
+  6b. the multi-process backend: two fresh interpreters
+     (``chip_smoke.py --cluster-mp-worker``), each one worker of
+     microllama-300m at full width in bf16 on the one card,
+     joined by gloo, run ``run_cluster`` with a ``TorchProcessBackend``
+     on phase 6's settings cut to k=1 x M=2, adaptive with the
+     microbatch estimator: ``sync`` against ``SimBackend`` in this
+     process on the same inputs (requested batches, modes, simulated
+     time and every round's f32 param checksum equal, final params
+     bitwise equal); ``async``, traced (the sim digest equal, real
+     overlap > 0, one ``piggyback`` span per stats sync and no
+     ``stats`` span); the backend in one process (k=1 x M=1, the
+     per-sample probe) bitwise equal to ``SimBackend``, with one launch
+     of each gradstats kernel per stats reduction; then each example of
+     ``repro_torch.examples`` in a fresh interpreter on the card
+     (``train_100m --demo``), which must exit 0.  Its wall times and
+     ``real_comm_time`` are gloo over loopback between two processes on
+     one card, not the speed of a collective.
+
   7. the chunked per-sample probe: 64 rows of microllama-300m's
      gradient at full width in bf16, whose one-pass G (78 GB) does not
      fit the card, in row chunks: one launch of each gradstats kernel
@@ -118,13 +136,14 @@ any failure raises and exits non-zero:
 
 A phase alone: ``python3 -c 'import sys; sys.path.insert(0, "."); import
 chip_smoke as cs; cs.phase_probe()'`` from the root (each phase builds
-the kernels it needs at first use); ``cs.phase_generate_encdec()`` and
-``cs.phase_generate_vlm()`` the same way.
+the kernels it needs at first use); ``cs.phase_generate_encdec()``,
+``cs.phase_generate_vlm()`` and ``cs.phase_cluster_mp()`` the same way.
 
 Then the ``kernels`` summary line (flash with its launches per path and
 model, its hd-256 times and its times at whisper-small's encoder and
-phi-3-vision's prefill; gradstats with the training, cluster,
-probe and family-training launches), the card's name and power limit,
+phi-3-vision's prefill, and the serving examples' launches; gradstats
+with the training, cluster, one-process backend, probe and
+family-training launches), the card's name and power limit,
 and
 last ``{"ok": true, "device": {...}}``.  Without a card (or without the
 repository around it) it exits non-zero and prints no result.
@@ -1720,16 +1739,16 @@ IB_NDR_BW = 400e9 / 8
 IB_NDR_LATENCY = 5e-6
 
 
-def cluster_inputs(spares: int):
+def cluster_inputs(spares: int, argv=TRAIN_ARGV):
     """Model, loss, config and fresh seeded inputs on the card of
-    ``launch.train``'s settings (``TRAIN_ARGV``), with ``spares`` spare
-    data shards."""
+    ``launch.train``'s settings (``argv``), with ``spares`` spare data
+    shards."""
     from repro_torch import models
     from repro_torch.data import make_shard_streams
     from repro_torch.launch import train
     from repro_torch.models import lm
 
-    args = train.parse_args(TRAIN_ARGV)
+    args = train.parse_args(argv)
     cfg, acfg = train.make_configs(args)
     k, M = acfg.num_init_trainers, acfg.nodes_per_gpu
     inits = [lm.param_dict(models.init_params(
@@ -1747,7 +1766,8 @@ def param_checksum(params) -> float:
                  .sum())
 
 
-def cluster_run(label: str, *, spares: int = 0, acfg_kw=None, **kw):
+def cluster_run(label: str, *, spares: int = 0, acfg_kw=None,
+                argv=TRAIN_ARGV, **kw):
     """One ``run_cluster`` on the card with the gradstats counts set to 0
     just before it and read just after, its stats reductions counted and
     the first one also computed by the plain version; prints the run's
@@ -1755,7 +1775,7 @@ def cluster_run(label: str, *, spares: int = 0, acfg_kw=None, **kw):
     from repro_torch.cluster import run_cluster
     from repro_torch.kernels.gradstats import ops as gs_ops
 
-    cfg, acfg, loss_fn, inits, streams = cluster_inputs(spares)
+    cfg, acfg, loss_fn, inits, streams = cluster_inputs(spares, argv)
     acfg = dataclasses.replace(acfg, **(acfg_kw or {}))
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1954,12 +1974,246 @@ def phase_cluster():
     return launches
 
 
+# phase_cluster's training settings on one trainer of two workers, one
+# per process, with the batch statistics composed across the processes
+CLUSTER_MP_ARGV = TRAIN_ARGV + ["--trainers", "1", "--no-merge",
+                                "--stats-estimator", "microbatch"]
+# one trainer of one worker: the one-process backend run (per-sample
+# probe through the gradstats kernels)
+ONE_PROC_ARGV = TRAIN_ARGV + ["--trainers", "1", "--workers", "1",
+                              "--no-merge"]
+MP_WORKER = "--cluster-mp-worker"
+MP_LABEL = "gloo over loopback, two processes on one card"
+
+
+def card_settings() -> None:
+    """Full-f32 products (no TF32) for matmuls and cuDNN."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def cluster_mp_worker(argv) -> int:
+    """One rank of ``phase_cluster_mp``'s two-process run (``chip_smoke.py
+    --cluster-mp-worker RANK PROCS INIT_METHOD POLICY OUT_DIR``):
+    ``run_cluster`` with a ``TorchProcessBackend`` on ``cuda:0``; every
+    rank writes its line to OUT_DIR, rank 0 also the run and the final
+    params."""
+    import torch.distributed as dist
+
+    from repro_torch.cluster import (NetworkModel, Trace,
+                                     TorchProcessBackend,
+                                     make_heterogeneous_profiles,
+                                     run_cluster)
+    from repro_torch.cluster.launch_mp import allgather_rows, init_group
+
+    rank, procs, init_method, policy, out = argv
+    rank, procs, out = int(rank), int(procs), Path(out)
+    card_settings()
+    init_group(init_method, rank, procs, timeout=600.0)
+    cfg, acfg, loss_fn, inits, streams = cluster_inputs(0, CLUSTER_MP_ARGV)
+    backend = TorchProcessBackend(NetworkModel(), device="cuda")
+    inits = [backend.broadcast_params(p) for p in inits]
+    trace = Trace() if policy == "async" else None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pool, hist, rep = run_cluster(
+        loss_fn, inits, streams, acfg, policy=policy,
+        profiles=make_heterogeneous_profiles(procs, ratio=2.0),
+        backend=backend, trace=trace, eval_fn=param_checksum,
+        device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    # every rank must hold the same trajectory and params
+    rows = allgather_rows(hist.eval_loss + [b[0] for b
+                                            in hist.requested_batches])
+    if not (rows == rows[0]).all():
+        raise AssertionError(f"ranks diverged: {rows.tolist()}")
+    line = {"rank": rank, "wall_s": wall,
+            "round_wall_ms": [w * 1e3 for w in rep.round_wall_s],
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    if rank == 0:
+        line.update(
+            batches=hist.requested_batches, modes=hist.modes,
+            sim_time=rep.sim_time, num_syncs=rep.num_syncs,
+            num_stats_syncs=rep.num_stats_syncs,
+            checksums=hist.eval_loss, losses=hist.loss,
+            real_comm_time=rep.real_comm_time)
+        if trace is not None:
+            kinds = {}
+            for sp in trace.real_spans():
+                kinds[sp.kind] = kinds.get(sp.kind, 0) + 1
+            line.update(sim_digest=trace.sim_digest(),
+                        real_overlap_frac=trace.overlap_fraction(
+                            clock="real"),
+                        real_span_kinds=kinds)
+        torch.save({k: v.cpu() for k, v in pool.global_params.items()},
+                   out / "params.pt")
+    (out / f"rank{rank}.json").write_text(json.dumps(line))
+    dist.destroy_process_group()
+    return 0
+
+
+def run_cluster_mp(policy: str, procs: int = 2) -> dict:
+    """Spawn ``procs`` fresh interpreters running ``cluster_mp_worker``
+    (every one on the one card), wait for them, and return rank 0's line
+    with every rank's peak memory and wall time and the final params."""
+    import tempfile
+
+    from repro_torch.cluster.launch_mp import child_env, free_port, spawn
+
+    init = f"tcp://127.0.0.1:{free_port()}"
+    with tempfile.TemporaryDirectory() as tmp:
+        cmds = [[sys.executable, str(ROOT / "chip_smoke.py"), MP_WORKER,
+                 str(r), str(procs), init, policy, tmp]
+                for r in range(procs)]
+        t0 = time.perf_counter()
+        spawn(cmds, timeout=600.0, env=child_env())
+        res = json.loads((Path(tmp) / "rank0.json").read_text())
+        res["spawn_wall_s"] = time.perf_counter() - t0
+        ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+                 for r in range(procs)]
+        res["max_memory_allocated"] = [r["max_memory_allocated"]
+                                       for r in ranks]
+        res["rank_wall_s"] = [r["wall_s"] for r in ranks]
+        res["params"] = torch.load(Path(tmp) / "params.pt")
+    return res
+
+
+EXAMPLES = [("quickstart", []), ("adloco_vs_diloco", []),
+            ("train_100m", ["--demo"]), ("heterogeneous_cluster", []),
+            ("serve_batched", []), ("continuous_batching", [])]
+
+
+def run_examples() -> dict:
+    """Each example's ``main`` on the card in a fresh interpreter, which
+    must exit 0; returns each one's wall seconds and its flash and scan
+    launches."""
+    code = ("import json, sys, time\n"
+            "from importlib import import_module\n"
+            "from repro_torch.kernels.flash_attention import ops\n"
+            "from repro_torch.kernels.mamba_scan import ops as scan\n"
+            "ex = import_module('repro_torch.examples.' + sys.argv[1])\n"
+            "t0 = time.perf_counter()\n"
+            "ex.main(sys.argv[2:])\n"
+            "print(json.dumps({'wall_s': time.perf_counter() - t0,"
+            " 'flash': ops.launches, 'flash_tc': ops.tc_launches,"
+            " 'flash_fma': ops.fma_launches, 'scan': scan.scan_launches}))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = {}
+    for name, argv in EXAMPLES:
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-c", code, name, *argv],
+                             capture_output=True, text=True, env=env,
+                             cwd=ROOT, timeout=600)
+        if run.returncode != 0:
+            raise AssertionError(f"example {name} exited {run.returncode}:"
+                                 f"\n{run.stdout[-2000:]}"
+                                 f"\n{run.stderr[-3000:]}")
+        res = json.loads(run.stdout.strip().splitlines()[-1])
+        res["process_wall_s"] = time.perf_counter() - t0
+        emit("example", name=name, argv=argv, **res,
+             last_lines=run.stdout.strip().splitlines()[-4:-1])
+        out[name] = res
+    return out
+
+
+def phase_cluster_mp():
+    """``TorchProcessBackend`` on the card: two processes (one worker of
+    microllama-300m each, ``cuda:0`` both) against ``SimBackend`` in this
+    process, sync and then async (traced); one process against
+    ``SimBackend`` with the gradstats counts read; then every example.
+    Returns the gradstats launches of the one-process run and the
+    serving examples' flash launches."""
+    from repro_torch.cluster import (NetworkModel, Trace,
+                                     TorchProcessBackend,
+                                     make_heterogeneous_profiles)
+
+    card_settings()                  # as the workers: no TF32
+
+    def equal_params(a, b):
+        return all(torch.equal(a[k].cpu(), b[k].cpu()) for k in a)
+
+    # 1. sync: the two-process run against SimBackend on the same inputs
+    profiles = make_heterogeneous_profiles(2, ratio=2.0)
+    pool, hist, rep, _ = cluster_run(
+        "mp_reference_sync", argv=CLUSTER_MP_ARGV, policy="sync",
+        profiles=profiles, network=NetworkModel())
+    ref = {"batches": hist.requested_batches, "modes": hist.modes,
+           "sim_time": rep.sim_time, "checksums": hist.eval_loss}
+    ref_params = {k: v.cpu() for k, v in pool.global_params.items()}
+    del pool, hist
+    torch.cuda.empty_cache()
+    mp = run_cluster_mp("sync")
+    bitwise = equal_params(mp.pop("params"), ref_params)
+    same = {key: mp[key] == want for key, want in ref.items()}
+    emit("cluster_mp", run="sync", label=MP_LABEL, **mp,
+         wall_ms_per_round=[mp["wall_s"] * 1e3 / len(mp["checksums"])],
+         reference=ref, equal=same, final_params_bitwise=bitwise)
+    if not all(same.values()) or not bitwise:
+        raise AssertionError("the two-process sync run and SimBackend "
+                             f"disagree: {same}, bitwise={bitwise}")
+    del ref_params
+
+    # 2. async, traced: the sim spans' digest as SimBackend's; one
+    # in-flight window per dispatch, no standalone stats span
+    trace = Trace()
+    _, _, rep, _ = cluster_run(
+        "mp_reference_async", argv=CLUSTER_MP_ARGV, policy="async",
+        profiles=profiles, network=NetworkModel(), trace=trace)
+    torch.cuda.empty_cache()
+    mp = run_cluster_mp("async")
+    mp.pop("params")
+    kinds = mp["real_span_kinds"]
+    census = (kinds.get("outer", 0) + kinds.get("piggyback", 0)
+              == mp["num_syncs"]
+              and kinds.get("piggyback", 0) == mp["num_stats_syncs"] > 0
+              and kinds.get("stats", 0) == 0)
+    checks = {"sim_digest": mp["sim_digest"] == trace.sim_digest(),
+              "real_overlap": mp["real_overlap_frac"] > 0.0,
+              "census": census}
+    emit("cluster_mp", run="async", label=MP_LABEL, **mp,
+         reference_sim_digest=trace.sim_digest(), checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"the two-process async run failed: {checks}")
+    del trace, rep
+
+    # 3. one process: the backend's identity collectives through the f32
+    # wire buffer, bitwise equal to SimBackend; the gradstats kernels
+    # launch once per stats reduction (cluster_run's counts)
+    profiles = make_heterogeneous_profiles(1, ratio=2.0)
+    pool, _, _, _ = cluster_run(
+        "one_process_sim", argv=ONE_PROC_ARGV, policy="sync",
+        profiles=profiles, network=NetworkModel())
+    ref_params = {k: v.cpu() for k, v in pool.global_params.items()}
+    del pool
+    pool, _, rep, launches = cluster_run(
+        "one_process_torch", argv=ONE_PROC_ARGV, policy="sync",
+        profiles=profiles,
+        backend=TorchProcessBackend(NetworkModel(), device="cuda"))
+    bitwise = equal_params(pool.global_params, ref_params)
+    emit("cluster_mp", run="one_process", launches=launches,
+         real_comm_time=rep.real_comm_time, final_params_bitwise=bitwise)
+    if not bitwise or not rep.real_comm_time > 0.0:
+        raise AssertionError("the one-process TorchProcessBackend run and "
+                             "SimBackend disagree")
+    del pool, ref_params
+    torch.cuda.empty_cache()
+
+    # 4. the examples
+    examples = run_examples()
+    return launches, {name: {k: examples[name][k] for k in
+                             ("flash", "flash_tc", "flash_fma", "scan")}
+                      for name in ("serve_batched", "continuous_batching")}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:2] == [MP_WORKER]:
+        return cluster_mp_worker(sys.argv[2:])
+    card_settings()
     t0 = time.perf_counter()
     smi, hgmma = timed("env", phase_env)
     flash_rows = timed("kernels_flash", phase_kernels)
@@ -1974,6 +2228,7 @@ def main() -> int:
     timed("server_ssm", phase_server, "falcon-mamba-7b", "mamba_scan")
     train_launches = timed("train", phase_train)
     cluster_launches = timed("cluster", phase_cluster)
+    mp_launches, example_flash = timed("cluster_mp", phase_cluster_mp)
     probe_launches = timed("probe", phase_probe)
     family_train = timed("train_families", phase_train_families)
     family_serve = timed("generate_families", phase_generate_families)
@@ -2000,6 +2255,7 @@ def main() -> int:
                               for a, n in family_serve.items()},
         "launches_encdec": encdec_launches["flash_attention_tc"],
         "launches_vlm": vlm_launches["flash_attention_tc"],
+        "launches_examples": example_flash,
         **{name: {f: r[f] for f in ("shape", "causal", "max_abs_err",
                                     "kernel_ms", "plain_ms", "bound_ms",
                                     "bound_by", "library_ms")}
@@ -2016,6 +2272,7 @@ def main() -> int:
         "replaces": COLSUM_TPU, "launches": train_launches["colsum"],
         "launches_cluster": {run: n["colsum"]
                              for run, n in cluster_launches.items()},
+        "launches_cluster_mp": mp_launches["colsum"],
         "launches_probe_64": probe_launches["colsum"],
         "launches_train_families": {a: n["colsum"]
                                     for a, n in family_train.items()},
@@ -2029,6 +2286,7 @@ def main() -> int:
         "launches": train_launches["moments"],
         "launches_cluster": {run: n["moments"]
                              for run, n in cluster_launches.items()},
+        "launches_cluster_mp": mp_launches["moments"],
         "launches_probe_64": probe_launches["moments"],
         "launches_train_families": {a: n["moments"]
                                     for a, n in family_train.items()},

@@ -1,5 +1,5 @@
 """repro_torch.cluster — event-driven cluster runtime for AdLoCo.  Port
-of ``repro/cluster`` without its multi-process backend.
+of ``repro/cluster``.
 
 Runs real AdLoCo numerics (the same ``TrainerRound`` primitives as
 ``repro_torch.core.adloco``, on the card unless the caller names another
@@ -13,7 +13,10 @@ and timed.  The division of labor:
   level's paths cost on the simulated clock;
 * an execution backend (``repro_torch.cluster.backend``) supplies
   **how** it executes: ``SimBackend`` prices it analytically and
-  reduces the workers' tensors in this process;
+  reduces the workers' tensors in this process; ``TorchProcessBackend``
+  runs one process per worker and executes it as real
+  ``torch.distributed`` all-reduces (``python -m
+  repro_torch.cluster.launch_mp`` spawns the processes);
 * the scenario decides **what happens** while it runs.
 
 None of the three may change the numerics: the sync policy with merging
@@ -69,12 +72,14 @@ default knobs).
 
 The node defaults are one NVIDIA H100 SXM (``node.py`` gives each
 constant's source); a ``Topology``'s links between pods are the
-caller's.  The next slice adds ``TorchProcessBackend``: one process per
-worker on ``torch.distributed`` (gloo on the CPU, NCCL with one card
-per rank), the counterpart of the JAX package's ``JaxProcessBackend``.
+caller's.  ``TorchProcessBackend`` is the counterpart of the JAX
+package's ``JaxProcessBackend``; its launcher joins the ranks in one
+gloo group, which carries CPU and CUDA tensors alike (on one card every
+rank shares it).
 """
 from repro_torch.cluster.autoscale import BandAutoscale, ElasticPolicy
-from repro_torch.cluster.backend import CollectiveBackend, SimBackend
+from repro_torch.cluster.backend import (CollectiveBackend, SimBackend,
+                                         TorchProcessBackend)
 from repro_torch.cluster.network import (FABRIC_SCOPES, CommDomain,
                                          FabricDomain, FabricSchedule,
                                          FabricWindow, NetworkModel,
@@ -96,7 +101,8 @@ __all__ = [
     "ClusterEvent", "ClusterReport", "ClusterSpec", "CollectiveBackend",
     "CommDomain", "ElasticPolicy", "FabricDomain", "FabricSchedule",
     "FabricWindow", "NetworkModel", "NodeProfile", "Scenario",
-    "SimBackend", "Slowdown", "Span", "Topology", "Trace", "TraceEvent",
+    "SimBackend", "Slowdown", "Span", "Topology", "TorchProcessBackend",
+    "Trace", "TraceEvent",
     "build_scenario", "interleave_pods", "list_scenarios",
     "make_heterogeneous_profiles", "make_pod_profiles",
     "make_rack_profiles", "register_scenario", "run_cluster",

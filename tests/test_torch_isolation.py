@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from repro_torch import models
+from repro_torch.cluster import launch_mp
 from repro_torch.configs import get_config, reduced
 from repro_torch.configs.base import AdLoCoConfig
 from repro_torch.core import train_adloco
@@ -19,7 +20,7 @@ from test_torch_lm import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "benchmarks")
 
 
 def _port_files():
@@ -60,7 +61,7 @@ def test_importing_every_module_loads_no_jax():
     code = ("import importlib, sys\n"
             f"for m in {names!r}: importlib.import_module(m)\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] "
-            "in ('jax', 'jaxlib', 'repro')))\n")
+            f"in {FORBIDDEN!r}))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, cwd=ROOT, timeout=120)
@@ -117,3 +118,6 @@ def test_entry_points_default_to_cuda_and_never_fall_back(monkeypatch):
         MarkovTokenStream(cfg.vocab_size, 8)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launch_train.main([])
+    # the multi-process launcher raises before it spawns a process
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch_mp.main(["--procs", "2", "--rounds", "1"])
