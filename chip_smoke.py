@@ -134,6 +134,21 @@ any failure raises and exits non-zero:
      model on a batch with a 576-token prefix.  Finite losses, params
      that move, no flash launch; device ms and peak memory.
 
+  12. the analysis layer: ``python -m repro_torch.launch.dryrun`` for
+     microllama-300m's four shapes and phi3-medium-14b's train_4k (FSDP)
+     on the h100_32x8 mesh, each in a fresh interpreter (all started
+     together): one line per combo (per-card FLOPs, bytes, wire and temp
+     bytes) and the roofline rows of ``launch.roofline``.  Then the count
+     held against the card on the (1, 1) ``make_host_mesh()``: the dry
+     run's own programs at one card's shapes (MicroLlama-300M bf16
+     prefill of 4 x 512 with last-token logits; one AdamW inner step at
+     seq 128, batch 8), counted on meta tensors and again on the card
+     (the FLOPs must be equal), the predicted peak (arguments + temp)
+     against ``max_memory_allocated``, and the device time against the
+     roofline bound of the card's count (the phase fails if a bound
+     exceeds its measured time: a count above what the card did is a
+     wrong count).
+
 A phase alone: ``python3 -c 'import sys; sys.path.insert(0, "."); import
 chip_smoke as cs; cs.phase_probe()'`` from the root (each phase builds
 the kernels it needs at first use); ``cs.phase_generate_encdec()``,
@@ -2207,6 +2222,144 @@ def phase_cluster_mp():
                       for name in ("serve_batched", "continuous_batching")}
 
 
+# ----------------------------------------------------------------------
+# 12. the analysis layer: dry run on the production mesh, count vs card
+# ----------------------------------------------------------------------
+
+# (arch, shape) of the dry runs: MicroLlama-300M's four shapes and one
+# FSDP combo (phi3-medium-14b has more than 5e9 parameters)
+DRYRUN_COMBOS = [("microllama-300m", s) for s in
+                 ("train_4k", "prefill_32k", "decode_32k", "long_500k")] \
+    + [("phi3-medium-14b", "train_4k")]
+
+
+def dryrun_combo(arch: str, shape: str, out: Path) -> dict:
+    """``python -m repro_torch.launch.dryrun`` for one combo in a fresh
+    interpreter (its fake process group of 256 ranks lives and dies
+    there) -> its artifact, or the skip it printed."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--out", str(out)],
+        capture_output=True, text=True, env=env, cwd=ROOT, timeout=900)
+    art = out / f"{arch}__{shape}__h100_32x8.json"
+    if proc.returncode == 0 and not art.exists():      # a skip saves nothing
+        return {"arch": arch, "shape": shape, "status": "skipped"}
+    if proc.returncode != 0:
+        raise AssertionError(f"dry run {arch} {shape} failed "
+                             f"(exit {proc.returncode}): {proc.stdout[-1500:]}"
+                             f"{proc.stderr[-1500:]}")
+    return json.loads(art.read_text())
+
+
+def card_check(label: str, cfg, shape, make_args) -> dict:
+    """The dry run's program for ``shape`` on the (1, 1) host mesh: its
+    count on meta tensors, then on the card with real tensors; the
+    predicted peak against the allocator's; the device time against the
+    roofline bound of the card's count."""
+    from repro_torch.launch import dryrun, op_analysis
+    from repro_torch.launch import mesh as M
+    mesh = M.make_host_mesh()
+    step, meta_args, policy = dryrun.build_program(cfg, shape, mesh)
+    meta = op_analysis.OpCounter()
+    dryrun.trace(meta, step, meta_args, policy)
+    predicted = dryrun.local_bytes(meta_args) + meta.temp_bytes
+    args = make_args()
+    card = op_analysis.OpCounter()
+    dryrun.trace(card, step, args, policy)
+    if card.cost.flops != meta.cost.flops:
+        raise AssertionError(f"{label}: card count {card.cost.flops} != "
+                             f"meta count {meta.cost.flops}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    ms = device_ms(lambda: step(*args), iters=5, warmup=2)
+    compute_ms = card.cost.flops / PEAK_BF16 * 1e3
+    memory_ms = card.cost.bytes / PEAK_BYTES * 1e3
+    bound_ms = max(compute_ms, memory_ms)
+    row = {"check": label, "shape": [shape.global_batch, shape.seq_len],
+           "flops_meta": meta.cost.flops, "flops_card": card.cost.flops,
+           "bytes_card": card.cost.bytes, "bytes_meta": meta.cost.bytes,
+           "predicted_peak_bytes": predicted, "max_memory_allocated": peak,
+           "device_ms": ms, "compute_ms": compute_ms, "memory_ms": memory_ms,
+           "bound_ms": bound_ms,
+           "bound_by": "operations" if compute_ms >= memory_ms else "bytes",
+           "bound_over_measured": bound_ms / ms}
+    emit("analysis_card", **row)
+    if bound_ms > ms:
+        raise AssertionError(f"{label}: bound {bound_ms} ms above the "
+                             f"measured {ms} ms: the count is too high")
+    return row
+
+
+def phase_analysis() -> dict:
+    """Phase 12: the dry run of ``DRYRUN_COMBOS`` on h100_32x8 (each in
+    its own interpreter, all started together) and their roofline rows;
+    then the count held against the card."""
+    import torch.distributed as dist
+
+    from repro_torch import models
+    from repro_torch.cluster.launch_mp import free_port
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import roofline
+    out = ROOT / "build" / "chip_smoke_dryrun"
+    out.mkdir(parents=True, exist_ok=True)
+    for old in out.glob("*.json"):
+        old.unlink()
+    with ThreadPoolExecutor(len(DRYRUN_COMBOS)) as pool:
+        results = list(pool.map(lambda c: dryrun_combo(*c, out),
+                                DRYRUN_COMBOS))
+    for r in results:
+        if r["status"] == "ok":
+            emit("analysis_dryrun", arch=r["arch"], shape=r["shape"],
+                 mesh=r["mesh"], status="ok", flops=r["flops"],
+                 bytes=r["bytes_accessed"],
+                 wire_bytes=r["collective_wire_bytes"],
+                 per_collective=r["per_collective"],
+                 argument_bytes=r["memory"]["argument_bytes"],
+                 temp_bytes=r["memory"]["temp_bytes"],
+                 trace_s=r["compile_s"])
+        else:
+            emit("analysis_dryrun", arch=r["arch"], shape=r["shape"],
+                 status=r["status"])
+    rows = roofline.load_rows(str(out))
+    for r in rows:
+        emit("analysis_roofline", arch=r.arch, shape=r.shape, mesh=r.mesh,
+             compute_s=r.compute_s, memory_s=r.memory_s,
+             collective_s=r.collective_s, bound_s=r.bound_s,
+             dominant=r.dominant, useful_ratio=r.useful_ratio,
+             roofline_fraction=r.roofline_fraction)
+    if len(rows) != sum(r["status"] == "ok" for r in results):
+        raise AssertionError("roofline rows do not match the dry runs")
+
+    cfg = get_config("microllama-300m")
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        params = models.lm.param_dict(models.init_params(cfg, 0))
+        gen = torch.Generator(device="cuda").manual_seed(0)
+
+        def tokens(*shape):
+            return torch.randint(0, cfg.vocab_size, shape, generator=gen,
+                                 device="cuda", dtype=torch.int32)
+
+        prefill = InputShape("card_prefill", 512, 4, "prefill")
+        checks = [card_check("prefill_4x512", cfg, prefill,
+                             lambda: (params, {"tokens": tokens(4, 512)}))]
+        from repro_torch import optim
+        train = InputShape("card_train", 128, 8, "train")
+        opt_state = optim.adamw(2e-5, weight_decay=0.1).init(params)
+        checks.append(card_check(
+            "train_step_8x128", cfg, train,
+            lambda: (params, opt_state, {"tokens": tokens(1, 8, 128)})))
+    finally:
+        dist.destroy_process_group()
+    return {"dryrun": results, "card": checks}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2235,6 +2388,7 @@ def main() -> int:
     encdec_launches = timed("generate_encdec", phase_generate_encdec)
     vlm_launches = timed("generate_vlm", phase_generate_vlm)
     timed("train_encdec_vlm", phase_train_encdec_vlm)
+    timed("analysis", phase_analysis)
     new_shapes = {"whisper_encoder": [4, 1500, 12, 12, 64],
                   "phi3v_prefill": [2, 1088, 32, 32, 96]}
     new_rows = {name: next(r for r in flash_rows if r["shape"] == shape)

@@ -52,8 +52,9 @@ def make_inner_step(loss_fn: Callable, inner_opt: optim.Optimizer,
                 opt_state, loss, grads)
 
     def step(params, opt_state, batch):
-        g_sum = {k: torch.zeros(p.shape, dtype=torch.float32,
-                                device=p.device) for k, p in params.items()}
+        # zeros_like keeps a sharded (DTensor) parameter's layout
+        g_sum = {k: torch.zeros_like(p, dtype=torch.float32)
+                 for k, p in params.items()}
         l_sum = torch.zeros((), dtype=torch.float32,
                             device=next(iter(params.values())).device)
         for a in range(accum_steps):

@@ -2,6 +2,10 @@
 
     PYTHONPATH=src python -m repro_torch.launch.profile
 
+This is not the counterpart of ``repro/launch/profile.py``, which
+prints the dry run's top cost centres: that is ``python -m
+repro_torch.launch.dryrun --arch A --shape S --profile`` here.
+
 Serving: ``serve.generate``'s two phases at the main path's shapes
 (microllama-300m, bf16, 4 prompts of 512 tokens, 32 greedy tokens) —
 one prefill (flash kernel on) and the greedy decode steps; then the SSM

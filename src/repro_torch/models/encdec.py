@@ -159,11 +159,10 @@ def _mlp(layer: EncDecLayer, x, cfg: ModelConfig):
 def _cross_attention(p, x, enc_kv, cfg: ModelConfig):
     """x (B,Sq,d) queries (no RoPE) against the encoder's k/v
     (B,F,Hk,hd): plain ``sdpa``, as in the JAX package."""
-    B, Sq, _ = x.shape
     k, v = enc_kv
-    q = (x @ p["q"]).reshape(B, Sq, cfg.num_heads, cfg.resolved_head_dim)
+    q = L.split_heads(x @ p["q"], cfg.num_heads, cfg.resolved_head_dim)
     out = L.sdpa(q, k, v, causal=False)
-    return out.reshape(B, Sq, cfg.q_dim) @ p["o"]
+    return L.merge_heads(out) @ p["o"]
 
 
 def encode(params: EncDecLM, frames, cfg: ModelConfig, *,
@@ -182,10 +181,9 @@ def encode(params: EncDecLM, frames, cfg: ModelConfig, *,
 
 def enc_kv(p_xattn, enc_out, cfg: ModelConfig):
     """Encoder states -> cross-attention k, v (B,F,Hk,hd), no RoPE."""
-    B, F, _ = enc_out.shape
     hd = cfg.resolved_head_dim
-    k = (enc_out @ p_xattn["k"]).reshape(B, F, cfg.num_kv_heads, hd)
-    v = (enc_out @ p_xattn["v"]).reshape(B, F, cfg.num_kv_heads, hd)
+    k = L.split_heads(enc_out @ p_xattn["k"], cfg.num_kv_heads, hd)
+    v = L.split_heads(enc_out @ p_xattn["v"], cfg.num_kv_heads, hd)
     return k, v
 
 
@@ -218,7 +216,7 @@ def loss_fn(params: EncDecLM, batch, cfg: ModelConfig):
     logits = decode_forward(params, tokens, enc_out, cfg)
     pred = logits[:, :-1].float()
     logz = torch.logsumexp(pred, dim=-1)
-    gold = torch.gather(pred, -1, tokens[:, 1:, None].long())[..., 0]
+    gold = lm.gold_logits(pred, tokens[:, 1:, None].long())
     ce = torch.mean(logz - gold)
     return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32,
                                              device=ce.device)}
@@ -260,8 +258,9 @@ def decode_step(params: EncDecLM, cache, token, pos, cfg: ModelConfig):
         ck, cv = cache["k"][i], cache["v"][i]
         h = L.rms_norm(x, layer.attn_norm, cfg.rms_eps)
         k_new, v_new = L.project_kv_one(layer.attn, h, cfg, pos)
-        ck.index_copy_(1, slot, k_new)
-        cv.index_copy_(1, slot, v_new)
+        rows = torch.arange(ck.shape[0], device=dev)
+        lm.write_slot(ck, rows, slot.expand(ck.shape[0]), k_new[:, 0])
+        lm.write_slot(cv, rows, slot.expand(ck.shape[0]), v_new[:, 0])
         x = x + L.decode_attention(layer.attn, h, cfg, ck, cv, pos,
                                    kv_pos_of_slot=kv_pos)
         h = L.rms_norm(x, layer.xattn_norm, cfg.rms_eps)

@@ -22,6 +22,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.sharding import (constrain, full, is_sharded,
+                                  policy_model_size, whole_groups,
+                                  whole_groups_in_grad)
 
 # A window value meaning "attend to everything" for global layers.
 GLOBAL_WINDOW = (2 ** 31 - 1) // 2
@@ -106,13 +109,27 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype):
     return p
 
 
+def split_heads(t, heads: int, hd: int):
+    """(..., heads * hd) -> (..., heads, hd).  A sharded feature dim whose
+    shards would cut a head is gathered first (``sharding.whole_groups``;
+    a plain tensor is only reshaped)."""
+    t = whole_groups(t, t.dim() - 1, heads)
+    return t.reshape(*t.shape[:-1], heads, hd)
+
+
+def merge_heads(t):
+    """(..., heads, hd) -> (..., heads * hd), a shard that would split the
+    merged dim unevenly gathered first (as ``split_heads``)."""
+    t = whole_groups(t, t.dim() - 2, t.shape[-2])
+    return t.reshape(*t.shape[:-2], t.shape[-2] * t.shape[-1])
+
+
 def qkv_project(p, x, cfg: ModelConfig, positions):
     """x (B,S,d) -> q (B,S,H,hd), k,v (B,S,Hk,hd), RoPE applied."""
-    B, S, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = (x @ p["q"]).reshape(B, S, cfg.num_heads, hd)
-    k = (x @ p["k"]).reshape(B, S, cfg.num_kv_heads, hd)
-    v = (x @ p["v"]).reshape(B, S, cfg.num_kv_heads, hd)
+    q = split_heads(x @ p["q"], cfg.num_heads, hd)
+    k = split_heads(x @ p["k"], cfg.num_kv_heads, hd)
+    v = split_heads(x @ p["v"], cfg.num_kv_heads, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.rms_eps)
         k = rms_norm(k, p["k_norm"], cfg.rms_eps)
@@ -130,7 +147,7 @@ def sdpa(q, k, v, *, causal: bool, window=None, q_offset: int = 0):
     """
     B, Sq, H, hd = q.shape
     Sk, Hk = k.shape[1], k.shape[2]
-    qg = q.reshape(B, Sq, Hk, H // Hk, hd)
+    qg = whole_groups(q, 2, Hk).reshape(B, Sq, Hk, H // Hk, hd)
     scale = 1.0 / math.sqrt(hd)
     logits = torch.einsum("bqkgh,bskh->bkgqs", qg, k).float() * scale
     qpos = torch.arange(Sq, device=q.device) + q_offset
@@ -141,24 +158,47 @@ def sdpa(q, k, v, *, causal: bool, window=None, q_offset: int = 0):
     if window is not None:
         mask &= kpos[None, :] > qpos[:, None] - window
     logits = logits.masked_fill(~mask, NEG_INF)
-    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    probs = _softmax(logits).to(q.dtype)
     out = torch.einsum("bkgqs,bskh->bqkgh", probs, v)
-    return out.reshape(B, Sq, H, hd)
+    return whole_groups_in_grad(out.reshape(B, Sq, H, hd), 2, Hk)
+
+
+def _softmax(logits):
+    """Softmax over the last dim.  On a DTensor it is written out (max,
+    exp, sum): DTensor cannot place ``_softmax_backward_data`` when the
+    backward shards the batch over a second mesh axis."""
+    if not is_sharded(logits):
+        return torch.softmax(logits, dim=-1)
+    e = torch.exp(logits - torch.amax(logits, dim=-1, keepdim=True))
+    return e / torch.sum(e, dim=-1, keepdim=True)
 
 
 def attention(p, x, cfg: ModelConfig, *, causal=True, window=None,
               positions=None, use_kernel=False):
     """Full-sequence attention sublayer (no cache): x (B,S,d) -> (B,S,d)."""
-    B, S, _ = x.shape
     if positions is None:
-        positions = torch.arange(S, device=x.device)
+        positions = torch.arange(x.shape[1], device=x.device)
     q, k, v = qkv_project(p, x, cfg, positions)
     if use_kernel:
         from repro_torch.kernels.flash_attention.ops import flash_attention
         out = flash_attention(q, k, v, causal=causal, window=window)
     else:
-        out = sdpa(q, k, v, causal=causal, window=window)
-    return out.reshape(B, S, cfg.q_dim) @ p["o"]
+        out = policy_sdpa(q, k, v, cfg, causal=causal, window=window)
+    return merge_heads(out) @ p["o"]
+
+
+def policy_sdpa(q, k, v, cfg: ModelConfig, *, causal: bool, window=None):
+    """``sdpa``; under a sharding policy whose model axis outnumbers the
+    heads, the query sequence is sharded instead of the heads (sharding
+    would otherwise split the head_dim contraction and reduce the S x S
+    scores)."""
+    if not 0 < policy_model_size() or cfg.num_heads >= policy_model_size():
+        return sdpa(q, k, v, causal=causal, window=window)
+    out = sdpa(constrain(q, "batch", "model", None, None),
+               constrain(k, "batch", None, None, None),
+               constrain(v, "batch", None, None, None),
+               causal=causal, window=window)
+    return constrain(out, "batch", None, None, None)
 
 
 def plan_window(cfg: ModelConfig, is_global: bool):
@@ -190,7 +230,7 @@ def decode_attention(p, x, cfg: ModelConfig, k_cache, v_cache, pos, *,
     """
     B = x.shape[0]
     hd = cfg.resolved_head_dim
-    q = (x @ p["q"]).reshape(B, 1, cfg.num_heads, hd)
+    q = split_heads(x @ p["q"], cfg.num_heads, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.rms_eps)
     cos, sin = rope_cos_sin(_rope_pos_for_decode(pos), hd, cfg.rope_theta)
@@ -201,7 +241,7 @@ def decode_attention(p, x, cfg: ModelConfig, k_cache, v_cache, pos, *,
     slot_pos = torch.atleast_2d(slot_pos).expand(B, C)
     pos_b = pos.expand(B)[:, None]                             # (B,1)
     Hk = cfg.num_kv_heads
-    qg = q.reshape(B, Hk, cfg.num_heads // Hk, hd)
+    qg = whole_groups(q, 2, Hk).reshape(B, Hk, cfg.num_heads // Hk, hd)
     logits = torch.einsum("bkgh,bskh->bkgs", qg, k_cache).float()
     logits = logits * (1.0 / math.sqrt(hd))
     mask = (slot_pos <= pos_b) & (slot_pos >= 0)
@@ -226,7 +266,7 @@ def gathered_attention(q, k_cache, v_cache, qpos, kv_pos, *, window=None):
     """
     B, Sq, H, hd = q.shape
     Hk = k_cache.shape[2]
-    qg = q.reshape(B, Sq, Hk, H // Hk, hd)
+    qg = whole_groups(q, 2, Hk).reshape(B, Sq, Hk, H // Hk, hd)
     logits = torch.einsum("bqkgh,bskh->bkgqs", qg, k_cache).float()
     logits = logits * (1.0 / math.sqrt(hd))
     kv = kv_pos[:, None, :]                              # (B,1,C)
@@ -243,10 +283,9 @@ def gathered_attention(q, k_cache, v_cache, qpos, kv_pos, *, window=None):
 def project_kv_one(p, x, cfg: ModelConfig, pos):
     """k/v for a single new token: x (B,1,d) -> (B,1,Hk,hd) each.
     ``pos``: 0-d or (B,) tensor."""
-    B = x.shape[0]
     hd = cfg.resolved_head_dim
-    k = (x @ p["k"]).reshape(B, 1, cfg.num_kv_heads, hd)
-    v = (x @ p["v"]).reshape(B, 1, cfg.num_kv_heads, hd)
+    k = split_heads(x @ p["k"], cfg.num_kv_heads, hd)
+    v = split_heads(x @ p["v"], cfg.num_kv_heads, hd)
     if cfg.qk_norm:
         k = rms_norm(k, p["k_norm"], cfg.rms_eps)
     cos, sin = rope_cos_sin(_rope_pos_for_decode(pos), hd, cfg.rope_theta)
@@ -306,6 +345,9 @@ def moe_route(p, x, cfg: ModelConfig, *,
     topw, topi = torch.topk(probs, K, dim=-1)
     topw = topw / torch.sum(topw, dim=-1, keepdim=True)
 
+    # the stable sort couples every token of the group: a sharded
+    # (DTensor) choice tensor is gathered whole first
+    topi = full(topi)
     flat_e = topi.reshape(-1)
     order = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[order]
@@ -347,12 +389,19 @@ def _moe_block_flat(p, x, cfg: ModelConfig, *,
     r = moe_route(p, x, cfg, capacity_factor=capacity_factor)
     C = r.capacity
 
-    tok = torch.arange(T * K, device=x.device) // K
-    slot_token = torch.zeros((E * C,), dtype=torch.long, device=x.device)
-    slot_token[r.slot[r.kept]] = tok[r.kept]
-    slot_used = torch.zeros((E * C,), dtype=x.dtype, device=x.device)
-    slot_used[r.slot[r.kept]] = 1
+    # kept assignments fill their (unique) slots; dropped ones land in
+    # an extra slot E*C that is cut off (no data-dependent shapes)
+    tok = torch.arange(T * K, device=r.slot.device) // K
+    slot_token = torch.zeros((E * C + 1,), dtype=torch.long,
+                             device=r.slot.device)
+    slot_token = slot_token.scatter_(0, r.slot, tok)[:E * C]
+    slot_used = torch.zeros((E * C + 1,), dtype=x.dtype, device=r.slot.device)
+    slot_used = slot_used.scatter_(0, r.slot, torch.ones_like(
+        r.slot, dtype=x.dtype))[:E * C]
     xe = (x[slot_token] * slot_used[:, None]).reshape(E, C, d)
+    # under the sharding policy the capacity slots split over the data
+    # axes (each card runs its share of every expert's slots)
+    xe = constrain(xe, None, "batch", None)
     h = F.silu(torch.bmm(xe, p["gate"])) * torch.bmm(xe, p["up"])
     ye = torch.bmm(h, p["down"]).reshape(E * C, d)
 
@@ -366,8 +415,10 @@ def _moe_block_flat(p, x, cfg: ModelConfig, *,
         y = y + torch.einsum("tsf,sfd->td", hs, p["s_down"])
 
     # load-balance aux loss (Switch-style)
-    frac_tokens = torch.bincount(r.topi.reshape(-1), minlength=E).float() \
-        / (T * K)
+    flat_e = r.topi.reshape(-1)
+    counts = torch.zeros((E,), dtype=torch.long, device=flat_e.device)
+    counts = counts.scatter_add_(0, flat_e, torch.ones_like(flat_e))
+    frac_tokens = counts.float() / (T * K)
     mean_prob = torch.mean(r.probs, dim=0)
     aux = mc.load_balance_coef * E * torch.sum(frac_tokens * mean_prob)
     return y, aux
@@ -451,8 +502,14 @@ def ssm_scan_seq(u, dt, A_log, Bmat, Cmat, sub: int = 16, h0=None):
     negA = -torch.exp(A_log.float())                      # (di,n)
     h = (torch.zeros((Bsz, di, n), dtype=torch.float32, device=u.device)
          if h0 is None else h0.float())
-    y = torch.empty((Bsz, S, di), dtype=torch.float32, device=u.device)
-    hs = torch.empty((sub, Bsz, di, n), dtype=torch.float32, device=u.device)
+    # a sharded (DTensor) scan takes no out= buffers: its states are
+    # stacked and its blocks concatenated instead
+    sharded = is_sharded(u)
+    ys = []
+    if not sharded:
+        y = torch.empty((Bsz, S, di), dtype=torch.float32, device=u.device)
+        hs = torch.empty((sub, Bsz, di, n), dtype=torch.float32,
+                         device=u.device)
     for lo in range(0, S, sub):
         hi = min(lo + sub, S)
         dtf = dt[:, lo:hi].float()
@@ -460,10 +517,18 @@ def ssm_scan_seq(u, dt, A_log, Bmat, Cmat, sub: int = 16, h0=None):
         a = torch.exp(dtf[..., None] * negA)              # (B,s,di,n)
         x = duf[..., None] * Bmat[:, lo:hi, None, :].float()
         a, x = a.transpose(0, 1), x.transpose(0, 1)       # (s,B,di,n)
+        states = []
         for t in range(hi - lo):
-            h = torch.addcmul(x[t], a[t], h, out=hs[t])
-        y[:, lo:hi] = torch.einsum("sbdn,bsn->bsd", hs[:hi - lo],
-                                   Cmat[:, lo:hi].float())
+            h = torch.addcmul(x[t], a[t], h, out=None if sharded else hs[t])
+            states.append(h)
+        blk = torch.stack(states) if sharded else hs[:hi - lo]
+        yb = torch.einsum("sbdn,bsn->bsd", blk, Cmat[:, lo:hi].float())
+        if sharded:
+            ys.append(yb)
+        else:
+            y[:, lo:hi] = yb
+    if sharded:
+        y = torch.cat(ys, dim=1)
     # h is a view of the step buffer: hand back a tensor of its own
     return y.to(u.dtype), h.to(u.dtype, copy=True)
 

@@ -55,12 +55,14 @@ import math
 from typing import Dict, List, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import layers as L
+from repro_torch.sharding import constrain, is_sharded, replicated
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -261,7 +263,12 @@ def _embed(params: DecoderLM, tokens, cfg: ModelConfig, prefix_emb=None):
     (B, P, d), cast to the model dtype, in front when given."""
     # the sqrt(d) scale is rounded to the model dtype first, as in JAX
     scale = torch.tensor(math.sqrt(cfg.d_model), dtype=params.embed.dtype)
-    x = params.embed[tokens] * scale
+    if is_sharded(params.embed):
+        # a sharded table is gathered and looked up by ``embedding``:
+        # DTensor cannot place the backward of an indexed lookup
+        x = F.embedding(tokens, replicated(params.embed)) * scale
+    else:
+        x = params.embed[tokens] * scale
     if prefix_emb is None:
         return x
     return torch.cat([prefix_emb.to(x.dtype), x], dim=1)
@@ -287,7 +294,8 @@ def _ffn(layer: DecoderLayer, x, cfg: ModelConfig, grouped: bool):
     if grouped and cfg.moe.dispatch == "grouped":
         return L.moe_block(layer.moe, h2, cfg)
     y, aux = L.moe_block(layer.moe, h2.reshape(-1, h2.shape[-1]), cfg)
-    return y.reshape(h2.shape), aux
+    # tokens back to batch-over-data before they are rows again
+    return constrain(y, "batch", None).reshape(h2.shape), aux
 
 
 def _mlp(layer: DecoderLayer, x, cfg: ModelConfig, grouped: bool = False):
@@ -329,10 +337,11 @@ def backbone(params: DecoderLM, tokens, cfg: ModelConfig, *,
     norm, aux): aux is the MoE layers' load-balance losses summed (0
     without MoE).  ``prefix_emb``: (B, P, d) stub embeddings (VLM
     patches) in front of the tokens; P = 0 without it."""
-    x = _embed(params, tokens, cfg, prefix_emb)
+    x = constrain(_embed(params, tokens, cfg, prefix_emb), "batch", None, None)
     positions = torch.arange(x.shape[1], device=x.device)
     aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer, g in zip(params.layers, layer_is_global(cfg)):
+        x = constrain(x, "batch", None, None)
         x, aux = _layer_apply(layer, x, cfg, g, positions, use_kernels)
         if aux is not None:
             aux_sum = aux_sum + aux
@@ -345,6 +354,17 @@ def forward(params: DecoderLM, tokens, cfg: ModelConfig, *,
     x, aux = backbone(params, tokens, cfg, prefix_emb=prefix_emb,
                       use_kernels=use_kernels)
     return x @ _head_weight(params, cfg), aux
+
+
+def gold_logits(logits, t):
+    """logits (..., V) at the targets t (..., 1) -> (...).  On a sharded
+    (DTensor) logits tensor the target is picked by a one-hot product
+    and a sum over V, which holds one nonzero term and so gives the same
+    value: DTensor's vocab-parallel gather fails on the meta device."""
+    if not is_sharded(logits):
+        return torch.gather(logits, -1, t)[..., 0]
+    vocab = torch.arange(logits.shape[-1], device=t.device)
+    return torch.sum(logits * (vocab == t), dim=-1)
 
 
 def chunked_ce(x, head, tokens, P: int, chunk: int):
@@ -362,7 +382,7 @@ def chunked_ce(x, head, tokens, P: int, chunk: int):
         logits = (hs[:, lo:lo + chunk] @ head).float()
         logz = torch.logsumexp(logits, dim=-1)
         t = tgt[:, lo:lo + chunk, None].long()
-        gold = torch.gather(logits, -1, t)[..., 0]
+        gold = gold_logits(logits, t)
         tot = tot + torch.sum(logz - gold)
     return tot / (B * n)
 
@@ -390,7 +410,7 @@ def loss_fn(params: DecoderLM, batch, cfg: ModelConfig, *,
         logits, aux = forward(params, tokens, cfg, prefix_emb=prefix)
         pred = logits[:, P:-1].float()                 # predicts tokens[1:]
         logz = torch.logsumexp(pred, dim=-1)
-        gold = torch.gather(pred, -1, tokens[:, 1:, None].long())[..., 0]
+        gold = gold_logits(pred, tokens[:, 1:, None].long())
         ce = torch.mean(logz - gold)
     aux = aux / max(cfg.num_layers, 1)
     return ce + aux, {"ce": ce, "aux": aux}
@@ -398,13 +418,15 @@ def loss_fn(params: DecoderLM, batch, cfg: ModelConfig, *,
 
 def _ring_scatter(kv, S_total: int, C: int):
     """Place the last min(C, S_total) positions of kv (B,S,Hk,hd) into a
-    (B,C,Hk,hd) ring buffer at slot p % C (position p's canonical slot)."""
+    (B,C,Hk,hd) ring buffer at slot p % C (position p's canonical slot).
+    Built from a pad or a rotation rather than an indexed write, which a
+    sharded (DTensor) cache cannot take."""
     take = min(C, S_total)
-    slots = torch.arange(S_total - take, S_total, device=kv.device) % C
-    buf = torch.zeros((kv.shape[0], C) + tuple(kv.shape[2:]),
-                      dtype=kv.dtype, device=kv.device)
-    buf[:, slots] = kv[:, S_total - take:]
-    return buf
+    last = kv[:, S_total - take:]
+    if take < C:           # positions 0 .. S-1 in slots 0 .. S-1
+        return F.pad(last, (0, 0, 0, 0, 0, C - take))
+    r = (S_total - take) % C           # the slot of the first kept position
+    return torch.cat([last[:, C - r:], last[:, :C - r]], dim=1)
 
 
 def prefill(params: DecoderLM, tokens, cfg: ModelConfig, cache_len: int, *,
@@ -423,7 +445,7 @@ def prefill(params: DecoderLM, tokens, cfg: ModelConfig, cache_len: int, *,
     Without it the Mamba blocks run the sequential scan
     (``layers.ssm_scan_seq``), JAX prefill's default.  The Mamba blocks
     also return their decode state from the same scan."""
-    x = _embed(params, tokens, cfg, prefix_emb)
+    x = constrain(_embed(params, tokens, cfg, prefix_emb), "batch", None, None)
     B, S_total = x.shape[:2]
     positions = torch.arange(S_total, device=x.device)
     cache: Dict[str, list] = {}
@@ -437,6 +459,7 @@ def prefill(params: DecoderLM, tokens, cfg: ModelConfig, cache_len: int, *,
         return y
 
     for layer, g in zip(params.layers, layer_is_global(cfg)):
+        x = constrain(x, "batch", None, None)
         if cfg.arch_type == "ssm":
             x = x + mamba(layer, L.rms_norm(x, layer.norm, cfg.rms_eps))
             continue
@@ -446,8 +469,8 @@ def prefill(params: DecoderLM, tokens, cfg: ModelConfig, cache_len: int, *,
         if use_kernels:
             a = flash_ops.flash_attention(q, k, v, causal=True, window=window)
         else:
-            a = L.sdpa(q, k, v, causal=True, window=window)
-        a = a.reshape(B, S_total, cfg.q_dim) @ layer.attn["o"]
+            a = L.policy_sdpa(q, k, v, cfg, causal=True, window=window)
+        a = L.merge_heads(a) @ layer.attn["o"]
         cache.setdefault("k", []).append(_ring_scatter(k, S_total, cache_len))
         cache.setdefault("v", []).append(_ring_scatter(v, S_total, cache_len))
         if cfg.hybrid:
@@ -529,8 +552,8 @@ def _decode_layer(layer: DecoderLayer, x, cfg: ModelConfig, is_global: bool,
     if active is not None:
         k_w = _mask_state(k_w, k_cache[rows, slot_b], active)
         v_w = _mask_state(v_w, v_cache[rows, slot_b], active)
-    k_cache[rows, slot_b] = k_w
-    v_cache[rows, slot_b] = v_w
+    write_slot(k_cache, rows, slot_b, k_w)
+    write_slot(v_cache, rows, slot_b, v_w)
     pos_c = pos[..., None]                                   # (1,) or (B,1)
     kv_pos = pos_c - (pos_c - torch.arange(C, device=x.device)) % C
     a = L.decode_attention(layer.attn, h, cfg, k_cache, v_cache, pos,
@@ -540,6 +563,20 @@ def _decode_layer(layer: DecoderLayer, x, cfg: ModelConfig, is_global: bool,
         a = 0.5 * (a + _mamba_decode_into(layer, h, cfg, cs["conv"],
                                           cs["ssm"], active))
     return _mlp(layer, x + a, cfg)
+
+
+def write_slot(cache, rows, slot_b, new):
+    """cache[rows, slot_b] = new, in place: row b's slot slot_b[b] of a
+    (B, C, ...) cache.  A cache sharded along C (a DTensor) takes no
+    indexed write there; it selects the new row over its whole shard
+    instead, as a partitioned dynamic-update-slice does."""
+    if is_sharded(cache):
+        C = cache.shape[1]
+        hit = torch.arange(C, device=slot_b.device)[None, :] == slot_b[:, None]
+        hit = hit.reshape(hit.shape + (1,) * (cache.dim() - 2))
+        cache.copy_(torch.where(hit, new[:, None], cache))
+    else:
+        cache[rows, slot_b] = new
 
 
 def decode_step(params: DecoderLM, cache, token, pos, cfg: ModelConfig, *,
