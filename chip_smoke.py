@@ -135,10 +135,12 @@ any failure raises and exits non-zero:
      that move, no flash launch; device ms and peak memory.
 
   12. the analysis layer: ``python -m repro_torch.launch.dryrun`` for
-     microllama-300m's four shapes and phi3-medium-14b's train_4k (FSDP)
-     on the h100_32x8 mesh, each in a fresh interpreter (all started
-     together): one line per combo (per-card FLOPs, bytes, wire and temp
-     bytes) and the roofline rows of ``launch.roofline``.  Then the count
+     microllama-300m's four shapes and the train_4k of phi3-medium-14b
+     and grok-1-314b (FSDP) and qwen3-0.6b on the h100_32x8 mesh, each
+     in a fresh interpreter (all started together): one line per combo
+     (status and torch version; per-card FLOPs, bytes, wire and temp
+     bytes, or the op an error names) and the roofline rows of
+     ``launch.roofline``; the phase fails if a combo errors.  Then the count
      held against the card on the (1, 1) ``make_host_mesh()``: the dry
      run's own programs at one card's shapes (MicroLlama-300M bf16
      prefill of 4 x 512 with last-token logits; one AdamW inner step at
@@ -2226,17 +2228,19 @@ def phase_cluster_mp():
 # 12. the analysis layer: dry run on the production mesh, count vs card
 # ----------------------------------------------------------------------
 
-# (arch, shape) of the dry runs: MicroLlama-300M's four shapes and one
-# FSDP combo (phi3-medium-14b has more than 5e9 parameters)
+# (arch, shape) of the dry runs: MicroLlama-300M's four shapes, two FSDP
+# combos (more than 5e9 parameters) and qwen3-0.6b's training step
 DRYRUN_COMBOS = [("microllama-300m", s) for s in
                  ("train_4k", "prefill_32k", "decode_32k", "long_500k")] \
-    + [("phi3-medium-14b", "train_4k")]
+    + [("phi3-medium-14b", "train_4k"), ("grok-1-314b", "train_4k"),
+       ("qwen3-0.6b", "train_4k")]
 
 
 def dryrun_combo(arch: str, shape: str, out: Path) -> dict:
     """``python -m repro_torch.launch.dryrun`` for one combo in a fresh
     interpreter (its fake process group of 256 ranks lives and dies
-    there) -> its artifact, or the skip it printed."""
+    there) -> its artifact (``ok`` or ``error``: one is written even
+    when the run exits 1), or the skip it printed."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
@@ -2244,8 +2248,9 @@ def dryrun_combo(arch: str, shape: str, out: Path) -> dict:
         capture_output=True, text=True, env=env, cwd=ROOT, timeout=900)
     art = out / f"{arch}__{shape}__h100_32x8.json"
     if proc.returncode == 0 and not art.exists():      # a skip saves nothing
-        return {"arch": arch, "shape": shape, "status": "skipped"}
-    if proc.returncode != 0:
+        return {"arch": arch, "shape": shape, "status": "skipped",
+                "torch": torch.__version__}
+    if not art.exists():
         raise AssertionError(f"dry run {arch} {shape} failed "
                              f"(exit {proc.returncode}): {proc.stdout[-1500:]}"
                              f"{proc.stderr[-1500:]}")
@@ -2280,6 +2285,7 @@ def card_check(label: str, cfg, shape, make_args) -> dict:
     memory_ms = card.cost.bytes / PEAK_BYTES * 1e3
     bound_ms = max(compute_ms, memory_ms)
     row = {"check": label, "shape": [shape.global_batch, shape.seq_len],
+           "torch": torch.__version__,
            "flops_meta": meta.cost.flops, "flops_card": card.cost.flops,
            "bytes_card": card.cost.bytes, "bytes_meta": meta.cost.bytes,
            "predicted_peak_bytes": predicted, "max_memory_allocated": peak,
@@ -2315,7 +2321,8 @@ def phase_analysis() -> dict:
     for r in results:
         if r["status"] == "ok":
             emit("analysis_dryrun", arch=r["arch"], shape=r["shape"],
-                 mesh=r["mesh"], status="ok", flops=r["flops"],
+                 mesh=r["mesh"], status="ok", torch=r["torch"],
+                 flops=r["flops"],
                  bytes=r["bytes_accessed"],
                  wire_bytes=r["collective_wire_bytes"],
                  per_collective=r["per_collective"],
@@ -2324,16 +2331,23 @@ def phase_analysis() -> dict:
                  trace_s=r["compile_s"])
         else:
             emit("analysis_dryrun", arch=r["arch"], shape=r["shape"],
-                 status=r["status"])
+                 status=r["status"], torch=r["torch"], op=r.get("op"),
+                 reason=r.get("reason", r.get("error", ""))[:300])
     rows = roofline.load_rows(str(out))
     for r in rows:
         emit("analysis_roofline", arch=r.arch, shape=r.shape, mesh=r.mesh,
+             torch=r.torch,
              compute_s=r.compute_s, memory_s=r.memory_s,
              collective_s=r.collective_s, bound_s=r.bound_s,
              dominant=r.dominant, useful_ratio=r.useful_ratio,
              roofline_fraction=r.roofline_fraction)
     if len(rows) != sum(r["status"] == "ok" for r in results):
         raise AssertionError("roofline rows do not match the dry runs")
+    failed = [(r["arch"], r["shape"], r["op"]) for r in results
+              if r["status"] == "error"]
+    if failed:
+        raise AssertionError(f"dry runs failed on torch {torch.__version__}:"
+                             f" {failed}")
 
     cfg = get_config("microllama-300m")
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:"

@@ -27,7 +27,9 @@ Per combination it traces
   decode_32k, long_500k -> one decode step against a seq_len cache
 These are the plain programs (no kernel of the port), the ones the JAX
 dry run lowers.  Results land in ``build/dryrun/<arch>__<shape>__<mesh>.json``
-with the JAX artifact's keys (minus ``xla_*``): ``lower_s`` is the time
+with the JAX artifact's keys (minus ``xla_*``) and ``torch``, the
+version that traced it (DTensor's sharding propagation, and so the
+count, changes between versions): ``lower_s`` is the time
 to lay out the sharded arguments, ``compile_s`` the time of the traced
 step (eager PyTorch compiles nothing, and ``generated_code_bytes`` is
 0), ``memory.temp_bytes`` the peak of the bytes the step allocated
@@ -129,13 +131,6 @@ def make_train_step(cfg, accum: int):
 
 def make_prefill_step(cfg, shape):
     C = S.cache_len_for(cfg, shape)
-    if cfg.arch_type == "ssm" or cfg.hybrid:
-        # JAX traces its scan body once (lax.scan); here every step is
-        # a Python iteration of DTensor ops
-        raise NotImplementedError(
-            "aten.addcmul: prefill's sequential selective scan takes "
-            f"{shape.seq_len} steps per layer in Python; the dry run does "
-            "not trace it")
 
     def prefill_step(params, batch):
         module = _module(params, cfg)
@@ -220,15 +215,31 @@ def _failing_op(exc: BaseException, counter) -> str:
     return (counter.last_op if counter is not None else None) or "unknown"
 
 
+def skip_reason(cfg, shape):
+    """Why the combo is not traced, or None."""
+    if shape.name == "long_500k" and cfg.name not in LONG_CONTEXT_ARCHS \
+            and cfg.arch_type != "ssm":
+        return "no sub-quadratic path"
+    if shape.kind == "prefill" and (cfg.arch_type == "ssm" or cfg.hybrid):
+        # JAX traces its scan body once (lax.scan); here every step is a
+        # Python iteration
+        return (f"prefill's sequential selective scan is a Python loop of "
+                f"{shape.seq_len:,} steps per layer: not traced")
+    return None
+
+
 def run_combo(arch: str, shape_name: str, *, multi_pod: bool = False,
               accum: int = 1, save: bool = True, verbose: bool = True,
               profile_top: int = 0, dump: str = None, out_dir: str = OUT_DIR):
     cfg = get_config(arch)
     shape = INPUT_SHAPES[shape_name]
-    if shape.name == "long_500k" and arch not in LONG_CONTEXT_ARCHS \
-            and cfg.arch_type != "ssm":
-        return {"arch": arch, "shape": shape_name, "status": "skipped",
-                "reason": "no sub-quadratic path"}
+    reason = skip_reason(cfg, shape)
+    if reason:
+        result = {"arch": arch, "shape": shape_name, "status": "skipped",
+                  "reason": reason, "torch": torch.__version__}
+        if verbose:
+            _print_result(result)
+        return result
     mesh_name = M.mesh_name(multi_pod)
     world = 512 if multi_pod else 256
     counter = None
@@ -244,7 +255,7 @@ def run_combo(arch: str, shape_name: str, *, multi_pod: bool = False,
             res = op_analysis.as_dict(counter)
             result = {
                 "arch": arch, "shape": shape_name, "mesh": mesh_name,
-                "status": "ok", "accum": accum,
+                "status": "ok", "accum": accum, "torch": torch.__version__,
                 "lower_s": round(t_lower, 1), "compile_s": round(t_trace, 1),
                 "flops": res["flops"],
                 "bytes_accessed": res["bytes"],
@@ -271,7 +282,8 @@ def run_combo(arch: str, shape_name: str, *, multi_pod: bool = False,
             del out, args
         except Exception as e:  # noqa: BLE001 -- a dry-run failure is a record
             result = {"arch": arch, "shape": shape_name, "mesh": mesh_name,
-                      "status": "error", "op": _failing_op(e, counter),
+                      "status": "error", "torch": torch.__version__,
+                      "op": _failing_op(e, counter),
                       "error": f"{type(e).__name__}: {str(e)[:1000]}",
                       "trace": traceback.format_exc()[-2000:]}
     if verbose:
@@ -362,6 +374,7 @@ def run_adloco_outer(arch: str, save: bool = True,
             res = op_analysis.as_dict(counter)
             result = {"arch": arch, "shape": "adloco_outer",
                       "mesh": mesh_name, "status": "ok",
+                      "torch": torch.__version__,
                       "flops": res["flops"], "bytes_accessed": res["bytes"],
                       "collective_bytes": res["collective_bytes"],
                       "collective_wire_bytes": res["collective_wire_bytes"],
@@ -374,6 +387,7 @@ def run_adloco_outer(arch: str, save: bool = True,
         except Exception as e:  # noqa: BLE001
             result = {"arch": arch, "shape": "adloco_outer",
                       "mesh": mesh_name, "status": "error",
+                      "torch": torch.__version__,
                       "op": _failing_op(e, counter),
                       "error": f"{type(e).__name__}: {str(e)[:1000]}"}
             print(f"[dryrun] {arch:22s} adloco_outer ERROR {result['op']} "

@@ -58,6 +58,7 @@ class RooflineRow:
     dominant: str
     useful_ratio: float
     note: str
+    torch: str                  # the torch version that traced the combo
     raw: dict
 
     @property
@@ -139,7 +140,7 @@ def load_rows(art_dir: str = ART_DIR) -> List[RooflineRow]:
             bound_s=max(terms.values()), dominant=dominant,
             useful_ratio=mf / max(r["flops"], 1.0),
             note=_suggestion(dominant, r, r["arch"], r["shape"]),
-            raw=r))
+            torch=r.get("torch", "unknown"), raw=r))
     return rows
 
 
@@ -159,8 +160,8 @@ def fmt_s(x: float) -> str:
 def print_table(rows: List[RooflineRow], markdown: bool = False) -> None:
     if markdown:
         print("| arch | shape | mesh | compute | memory | collective | "
-              "bound | dominant | MFLOPs/FLOPs | roofline frac |")
-        print("|---|---|---|---|---|---|---|---|---|---|")
+              "bound | dominant | MFLOPs/FLOPs | roofline frac | torch |")
+        print("|---|---|---|---|---|---|---|---|---|---|---|")
         for r in rows:
             print(f"| {r.arch} | {r.shape} | {r.mesh} | "
                   f"{fmt_s(r.compute_s).strip()} | "
@@ -168,27 +169,27 @@ def print_table(rows: List[RooflineRow], markdown: bool = False) -> None:
                   f"{fmt_s(r.collective_s).strip()} | "
                   f"{fmt_s(r.bound_s).strip()} | "
                   f"**{r.dominant}** | {r.useful_ratio:.2f} | "
-                  f"{r.roofline_fraction:.2f} |")
+                  f"{r.roofline_fraction:.2f} | {r.torch} |")
         return
     hdr = (f"{'arch':22s} {'shape':12s} {'mesh':12s} {'compute':9s} "
            f"{'memory':9s} {'collect':9s} {'dominant':10s} "
-           f"{'useful':7s} {'rooffrac':8s}")
+           f"{'useful':7s} {'rooffrac':8s} torch")
     print(hdr)
     print("-" * len(hdr))
     for r in rows:
         print(f"{r.arch:22s} {r.shape:12s} {r.mesh:12s} "
               f"{fmt_s(r.compute_s)} {fmt_s(r.memory_s)} "
               f"{fmt_s(r.collective_s)} {r.dominant:10s} "
-              f"{r.useful_ratio:6.2f}  {r.roofline_fraction:6.2f}")
+              f"{r.useful_ratio:6.2f}  {r.roofline_fraction:6.2f}   {r.torch}")
 
 
 def print_csv(rows: List[RooflineRow]) -> None:
     print("arch,shape,mesh,compute_s,memory_s,collective_s,dominant,"
-          "useful_ratio,roofline_fraction")
+          "useful_ratio,roofline_fraction,torch")
     for r in rows:
         print(f"{r.arch},{r.shape},{r.mesh},{r.compute_s:.6g},"
               f"{r.memory_s:.6g},{r.collective_s:.6g},{r.dominant},"
-              f"{r.useful_ratio:.4f},{r.roofline_fraction:.4f}")
+              f"{r.useful_ratio:.4f},{r.roofline_fraction:.4f},{r.torch}")
 
 
 def pick_hillclimb_pairs(rows: List[RooflineRow]) -> Dict[str, RooflineRow]:

@@ -22,9 +22,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.sharding import (constrain, full, is_sharded,
-                                  policy_model_size, whole_groups,
-                                  whole_groups_in_grad)
+from repro_torch.sharding import (constrain, full, is_sharded, on_shards,
+                                  policy_model_size, shard_offset,
+                                  whole_groups, whole_groups_in_grad)
 
 # A window value meaning "attend to everything" for global layers.
 GLOBAL_WINDOW = (2 ** 31 - 1) // 2
@@ -188,17 +188,47 @@ def attention(p, x, cfg: ModelConfig, *, causal=True, window=None,
 
 
 def policy_sdpa(q, k, v, cfg: ModelConfig, *, causal: bool, window=None):
-    """``sdpa``; under a sharding policy whose model axis outnumbers the
-    heads, the query sequence is sharded instead of the heads (sharding
-    would otherwise split the head_dim contraction and reduce the S x S
-    scores)."""
-    if not 0 < policy_model_size() or cfg.num_heads >= policy_model_size():
+    """``sdpa``; under a sharding policy (the dry run) laid out so that
+    each card computes only its share of the S x S scores:
+
+      * heads that split evenly over the model axis are sharded.  Where
+        the kv heads do not (4 kv heads over 8 cards), k and v are first
+        repeated to one per query head (Megatron's kv replication), so
+        that the grouping never gathers the queries;
+      * otherwise the query sequence is sharded (context parallelism, as
+        the JAX package does for fewer heads than the axis: sharding
+        would split the head_dim contraction and reduce the scores).
+
+    Either way a card's scores need nothing of the other cards, so they
+    run on its own shards (``sharding.on_shards``)."""
+    m = policy_model_size()
+    if not m:
         return sdpa(q, k, v, causal=causal, window=window)
-    out = sdpa(constrain(q, "batch", "model", None, None),
-               constrain(k, "batch", None, None, None),
-               constrain(v, "batch", None, None, None),
-               causal=causal, window=window)
-    return constrain(out, "batch", None, None, None)
+    H, Hk = q.shape[2], k.shape[2]
+    if H % m:
+        q = constrain(q, "batch", "model", None, None)
+        k = constrain(k, "batch", None, None, None)
+        v = constrain(v, "batch", None, None, None)
+        off = shard_offset(q, 1)
+        out = on_shards(lambda q, k, v: sdpa(q, k, v, causal=causal,
+                                             window=window, q_offset=off),
+                        q, k, v)
+        return constrain(out, "batch", None, None, None)
+    if Hk % m:
+        k, v = (repeat_kv(constrain(t, "batch", None, None, None), H // Hk)
+                for t in (k, v))
+    heads = ("batch", None, "model", None)
+    return on_shards(lambda q, k, v: sdpa(q, k, v, causal=causal,
+                                          window=window),
+                     *(constrain(t, *heads) for t in (q, k, v)))
+
+
+def repeat_kv(t, g: int):
+    """(B,S,Hk,hd) -> (B,S,Hk*g,hd), kv head j serving query heads
+    j*g .. j*g+g-1 (the grouping of ``sdpa``)."""
+    B, S, Hk, hd = t.shape
+    return t[:, :, :, None, :].expand(B, S, Hk, g, hd).reshape(
+        B, S, Hk * g, hd)
 
 
 def plan_window(cfg: ModelConfig, is_global: bool):
@@ -502,14 +532,8 @@ def ssm_scan_seq(u, dt, A_log, Bmat, Cmat, sub: int = 16, h0=None):
     negA = -torch.exp(A_log.float())                      # (di,n)
     h = (torch.zeros((Bsz, di, n), dtype=torch.float32, device=u.device)
          if h0 is None else h0.float())
-    # a sharded (DTensor) scan takes no out= buffers: its states are
-    # stacked and its blocks concatenated instead
-    sharded = is_sharded(u)
-    ys = []
-    if not sharded:
-        y = torch.empty((Bsz, S, di), dtype=torch.float32, device=u.device)
-        hs = torch.empty((sub, Bsz, di, n), dtype=torch.float32,
-                         device=u.device)
+    y = torch.empty((Bsz, S, di), dtype=torch.float32, device=u.device)
+    hs = torch.empty((sub, Bsz, di, n), dtype=torch.float32, device=u.device)
     for lo in range(0, S, sub):
         hi = min(lo + sub, S)
         dtf = dt[:, lo:hi].float()
@@ -517,18 +541,10 @@ def ssm_scan_seq(u, dt, A_log, Bmat, Cmat, sub: int = 16, h0=None):
         a = torch.exp(dtf[..., None] * negA)              # (B,s,di,n)
         x = duf[..., None] * Bmat[:, lo:hi, None, :].float()
         a, x = a.transpose(0, 1), x.transpose(0, 1)       # (s,B,di,n)
-        states = []
         for t in range(hi - lo):
-            h = torch.addcmul(x[t], a[t], h, out=None if sharded else hs[t])
-            states.append(h)
-        blk = torch.stack(states) if sharded else hs[:hi - lo]
-        yb = torch.einsum("sbdn,bsn->bsd", blk, Cmat[:, lo:hi].float())
-        if sharded:
-            ys.append(yb)
-        else:
-            y[:, lo:hi] = yb
-    if sharded:
-        y = torch.cat(ys, dim=1)
+            h = torch.addcmul(x[t], a[t], h, out=hs[t])
+        y[:, lo:hi] = torch.einsum("sbdn,bsn->bsd", hs[:hi - lo],
+                                   Cmat[:, lo:hi].float())
     # h is a view of the step buffer: hand back a tensor of its own
     return y.to(u.dtype), h.to(u.dtype, copy=True)
 

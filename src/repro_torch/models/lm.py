@@ -288,7 +288,11 @@ def _ffn(layer: DecoderLayer, x, cfg: ModelConfig, grouped: bool):
     -> (y (B,S,d), MoE aux or None).  ``grouped``: follow
     ``cfg.moe.dispatch`` (JAX's forward and chunked prefill); otherwise
     every token of the call is one routing group."""
-    h2 = L.rms_norm(x, layer.mlp_norm, cfg.rms_eps)
+    # pinned to batch-over-data like the layer input: left free, DTensor
+    # may keep the attention's partial sums sharded over the sequence and
+    # then gather the weights and the activations both
+    h2 = constrain(L.rms_norm(x, layer.mlp_norm, cfg.rms_eps),
+                   "batch", None, None)
     if cfg.moe is None:
         return L.swiglu(h2, layer.gate, layer.up, layer.down), None
     if grouped and cfg.moe.dispatch == "grouped":

@@ -240,6 +240,42 @@ def whole_groups(x, dim: int, groups: int):
     return x.redistribute(x.device_mesh, places)
 
 
+def on_shards(fn, *xs):
+    """``fn`` run on each card's own shards of the DTensors ``xs``; its
+    result, of ``xs[0]``'s shape, a DTensor laid out as ``xs[0]``: for
+    work that needs nothing of the other cards' shards, such as
+    attention within a card's own heads.  Gradients flow back to the
+    shards.  Plain tensors go to ``fn`` as they are."""
+    x0 = xs[0]
+    if not isinstance(x0, DTensor):
+        return fn(*xs)
+    out = fn(*(x.to_local() if isinstance(x, DTensor) else x for x in xs))
+    shape = tuple(x0.shape)
+    stride = [1] * len(shape)
+    for d in range(len(shape) - 2, -1, -1):
+        stride[d] = stride[d + 1] * shape[d + 1]
+    return DTensor.from_local(out.contiguous(), x0.device_mesh,
+                              x0.placements, run_check=False,
+                              shape=torch.Size(shape), stride=tuple(stride))
+
+
+def shard_offset(x, dim: int) -> int:
+    """Global index of this card's first element of ``x`` along ``dim``
+    (DTensor's chunks: ceil(size / n) each, the last ones shorter); 0
+    for a plain tensor."""
+    if not isinstance(x, DTensor):
+        return 0
+    mesh, coord = x.device_mesh, x.device_mesh.get_coordinate()
+    off, size = 0, x.shape[dim]
+    for i, p in enumerate(x.placements):
+        if p.is_shard() and p.dim == dim:
+            chunk = -(-size // mesh.size(i))
+            start = min(coord[i] * chunk, size)
+            off += start
+            size = max(0, min(chunk, size - start))
+    return off
+
+
 class _WholeGroupsGrad(torch.autograd.Function):
     """Identity whose backward passes the gradient through
     ``whole_groups``."""
@@ -301,7 +337,9 @@ def constrain(x, *dims):
     """Redistribute the DTensor ``x`` so that each dim lies as named:
     "batch" over the policy's batch axes, "model" over its model axis,
     None replicated.  Returns ``x`` itself when no policy is active or
-    ``x`` is a plain tensor."""
+    ``x`` is a plain tensor.  Unlike JAX's sharding constraint, whose
+    transpose constrains the cotangent alike, the gradient's layout is
+    left to DTensor."""
     pol = _ACT_POLICY.get()
     if pol is None or not isinstance(x, DTensor):
         return x

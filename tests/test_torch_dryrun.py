@@ -107,6 +107,62 @@ def test_reduced_prefill_on_a_fake_2x2_mesh_counts_a_quarter():
         "all-gather", "all-reduce", "reduce-scatter", "all-to-all"}
 
 
+ATTENTION_FLOPS = 16_777_216        # the reduced prefill's S x S products
+
+
+@pytest.mark.parametrize("model", [4, 8])
+def test_attention_splits_over_a_model_axis_wider_than_the_kv_heads(model):
+    """The reduced MicroLlama has 4 heads and 2 kv heads.  On a (1, 4)
+    mesh a card's share of k is half a head: k and v are repeated to one
+    per query head, so the queries stay head-sharded (each card one
+    head) and the whole prefill splits evenly.  On a (1, 8) mesh the
+    heads cannot split and the query sequence is sharded.  Either way a
+    card computes 1/model of the attention's products (``bmm``; every
+    projection is an ``mm``), where a gathered query would compute all
+    of them."""
+    with dryrun.fake_world(model):
+        from torch.distributed.device_mesh import init_device_mesh
+        mesh = init_device_mesh("cuda", (1, model),
+                                mesh_dim_names=("data", "model"))
+        params = sharding.param_shardings(specs.abstract_params(port_cfg()),
+                                          mesh)
+        tokens = specs.prefill_batch_shardings({"tokens": meta_tokens()},
+                                               mesh)["tokens"]
+        counter = op_analysis.OpCounter()
+        with sharding.activation_policy(("data",), model_size=model):
+            dryrun.trace(counter, port_prefill, (params, tokens))
+    attn = sum(r["flops"] for r in counter.breakdown(len(counter.rows))
+               if r["op"].startswith("aten.bmm"))
+    assert attn == ATTENTION_FLOPS / model
+    if model == 4:
+        assert counter.cost.flops == PREFILL_FLOPS / 4
+
+
+def test_shard_offset_follows_dtensor_chunks():
+    """Rank 5 of 8 holds rows 940 .. 1127 of 1500 (chunks of 188), and
+    of a dim split over both mesh axes of a (2, 4) mesh, its sixth
+    eighth."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=5, world_size=8)
+    try:
+        mesh = init_device_mesh("cuda", (1, 8),
+                                mesh_dim_names=("data", "model"))
+        x = sharding.distribute(torch.empty(2, 1500, device="meta"),
+                                (None, "model"), mesh)
+        assert tuple(x._local_tensor.shape) == (2, 188)
+        assert sharding.shard_offset(x, 1) == 940
+        assert sharding.shard_offset(x, 0) == 0
+        mesh = init_device_mesh("cuda", (2, 4),
+                                mesh_dim_names=("data", "model"))
+        y = sharding.distribute(torch.empty(64, 3, device="meta"),
+                                (("data", "model"), None), mesh)
+        assert sharding.shard_offset(y, 0) == 5 * 8
+        assert sharding.shard_offset(torch.empty(4), 0) == 0
+    finally:
+        dist.destroy_process_group()
+
+
 @pytest.mark.parametrize("chunk", [None, 16])
 def test_train_step_flops_equal_jax_grad(chunk):
     jcfg, tcfg = jax_cfg(), port_cfg()
@@ -211,11 +267,19 @@ def test_model_flops_per_chip_equal_jax(arch):
 def test_skip_and_error_records_name_the_op(tmp_path):
     r = dryrun.run_combo("qwen3-0.6b", "long_500k", out_dir=str(tmp_path))
     assert r["status"] == "skipped"
+    # SSM prefill is not traced: its scan is a Python loop of S steps
     r = dryrun.run_combo("hymba-1.5b", "prefill_32k", out_dir=str(tmp_path))
-    assert r["status"] == "error" and r["op"] == "aten.addcmul"
-    saved = json.loads((tmp_path / "hymba-1.5b__prefill_32k__h100_32x8.json")
-                       .read_text())
-    assert saved["op"] == "aten.addcmul"
+    assert r["status"] == "skipped" and "32,768 steps" in r["reason"]
+    assert r["torch"] == torch.__version__
+    assert not list(tmp_path.iterdir())              # a skip saves nothing
+    # whisper's prefill writes its first token into a self-attention
+    # cache that the encoder pass made as a plain tensor
+    r = dryrun.run_combo("whisper-small", "prefill_32k",
+                         out_dir=str(tmp_path))
+    assert r["status"] == "error" and r["op"] == "aten.index_put_.default"
+    saved = json.loads((tmp_path / "whisper-small__prefill_32k__h100_32x8"
+                        ".json").read_text())
+    assert saved["op"] == r["op"] and saved["torch"] == torch.__version__
 
 
 def test_decode_combo_and_roofline_rows(tmp_path, capsys):
