@@ -2229,11 +2229,25 @@ def phase_cluster_mp():
 # ----------------------------------------------------------------------
 
 # (arch, shape) of the dry runs: MicroLlama-300M's four shapes, two FSDP
-# combos (more than 5e9 parameters) and qwen3-0.6b's training step
+# combos (more than 5e9 parameters), qwen3-0.6b's training step, and the
+# prefills that trace a trip-scaled scan (ssm, hybrid) or write a sharded
+# self-attention cache (encoder-decoder), which must all record "ok"
+PREFILL_COMBOS = [("falcon-mamba-7b", "prefill_32k"),
+                  ("hymba-1.5b", "prefill_32k"),
+                  ("whisper-small", "prefill_32k")]
 DRYRUN_COMBOS = [("microllama-300m", s) for s in
                  ("train_4k", "prefill_32k", "decode_32k", "long_500k")] \
     + [("phi3-medium-14b", "train_4k"), ("grok-1-314b", "train_4k"),
-       ("qwen3-0.6b", "train_4k")]
+       ("qwen3-0.6b", "train_4k")] + PREFILL_COMBOS
+# per-card train_4k FLOPs that the CPU dry run counts on torch 2.13
+# (`python -m repro_torch.launch.dryrun --all`, PERF.md section 5); the
+# card's torch must count the same: with the gradients constrained like
+# their activations, the unsharded step's count over 256, grok-1-314b's
+# plus its replicated router's product on every model card
+TRAIN_FLOPS_TORCH_2_13 = {"microllama-300m": 9154526183424.0,
+                          "qwen3-0.6b": 26190850818048.0,
+                          "phi3-medium-14b": 388863256166400.0,
+                          "grok-1-314b": 2612692493795328.0}
 
 
 def dryrun_combo(arch: str, shape: str, out: Path) -> dict:
@@ -2257,11 +2271,14 @@ def dryrun_combo(arch: str, shape: str, out: Path) -> dict:
     return json.loads(art.read_text())
 
 
-def card_check(label: str, cfg, shape, make_args) -> dict:
+def card_check(label: str, cfg, shape, make_args, iters: int = 5,
+               warmup: int = 2) -> dict:
     """The dry run's program for ``shape`` on the (1, 1) host mesh: its
-    count on meta tensors, then on the card with real tensors; the
-    predicted peak against the allocator's; the device time against the
-    roofline bound of the card's count."""
+    count on meta tensors (a sequential scan's blocks traced once and
+    scaled by their trip count), then on the card with real tensors
+    (every block run): FLOPs and bytes equal; the predicted peak against
+    the allocator's; the device time against the roofline bound of the
+    card's count."""
     from repro_torch.launch import dryrun, op_analysis
     from repro_torch.launch import mesh as M
     mesh = M.make_host_mesh()
@@ -2272,15 +2289,17 @@ def card_check(label: str, cfg, shape, make_args) -> dict:
     args = make_args()
     card = op_analysis.OpCounter()
     dryrun.trace(card, step, args, policy)
-    if card.cost.flops != meta.cost.flops:
-        raise AssertionError(f"{label}: card count {card.cost.flops} != "
-                             f"meta count {meta.cost.flops}")
+    if (card.cost.flops, card.cost.bytes) != (meta.cost.flops,
+                                              meta.cost.bytes):
+        raise AssertionError(f"{label}: card count {card.cost.flops} FLOPs,"
+                             f" {card.cost.bytes} bytes != meta count "
+                             f"{meta.cost.flops}, {meta.cost.bytes}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     step(*args)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
-    ms = device_ms(lambda: step(*args), iters=5, warmup=2)
+    ms = device_ms(lambda: step(*args), iters=iters, warmup=warmup)
     compute_ms = card.cost.flops / PEAK_BF16 * 1e3
     memory_ms = card.cost.bytes / PEAK_BYTES * 1e3
     bound_ms = max(compute_ms, memory_ms)
@@ -2348,6 +2367,24 @@ def phase_analysis() -> dict:
     if failed:
         raise AssertionError(f"dry runs failed on torch {torch.__version__}:"
                              f" {failed}")
+    not_ok = [(r["arch"], r["shape"], r["status"]) for r in results
+              if (r["arch"], r["shape"]) in PREFILL_COMBOS
+              and r["status"] != "ok"]
+    if not_ok:
+        raise AssertionError(f"prefill dry runs not traced: {not_ok}")
+    differ = []
+    for r in results:
+        if r["shape"] == "train_4k":
+            ref = TRAIN_FLOPS_TORCH_2_13[r["arch"]]
+            emit("analysis_train_versions", arch=r["arch"], torch=r["torch"],
+                 flops=r["flops"], flops_torch_2_13=ref,
+                 equal=r["flops"] == ref)
+            if r["flops"] != ref:
+                differ.append((r["arch"], r["flops"], ref))
+    if differ:
+        raise AssertionError(f"train_4k FLOPs per card on torch "
+                             f"{torch.__version__} differ from torch "
+                             f"2.13's: {differ}")
 
     cfg = get_config("microllama-300m")
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:"
@@ -2369,6 +2406,17 @@ def phase_analysis() -> dict:
         checks.append(card_check(
             "train_step_8x128", cfg, train,
             lambda: (params, opt_state, {"tokens": tokens(1, 8, 128)})))
+        del params, opt_state
+        # falcon-mamba-7b's plain prefill: the sequential scan's 32
+        # blocks of 16 steps per layer, traced once on meta tensors
+        fcfg = get_config("falcon-mamba-7b")
+        fparams = models.lm.param_dict(models.init_params(fcfg, 0))
+        ftokens = torch.randint(0, fcfg.vocab_size, (4, 512), generator=gen,
+                                device="cuda", dtype=torch.int32)
+        checks.append(card_check("falcon_prefill_4x512", fcfg, prefill,
+                                 lambda: (fparams, {"tokens": ftokens}),
+                                 iters=3, warmup=1))
+        del fparams
     finally:
         dist.destroy_process_group()
     return {"dryrun": results, "card": checks}

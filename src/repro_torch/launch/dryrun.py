@@ -22,8 +22,9 @@ Per combination it traces
                            forward, backward and AdamW, with SwitchMode
                            accumulation for ``--accum`` > 1)
   prefill_32k           -> prefill (KV-cache fill, last-token logits;
-                           the encoder-decoder: ``init_cache`` and one
-                           decode step)
+                           the encoder-decoder: the encoder's cross
+                           cache, a self-attention cache created as the
+                           decode plan lays it out, and one decode step)
   decode_32k, long_500k -> one decode step against a seq_len cache
 These are the plain programs (no kernel of the port), the ones the JAX
 dry run lowers.  Results land in ``build/dryrun/<arch>__<shape>__<mesh>.json``
@@ -48,6 +49,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import os
 import re
 import sys
@@ -129,13 +131,24 @@ def make_train_step(cfg, accum: int):
     return train_step, opt
 
 
-def make_prefill_step(cfg, shape):
+def make_prefill_step(cfg, shape, mesh):
     C = S.cache_len_for(cfg, shape)
+    # the encoder-decoder's fresh self-attention cache: zeros created
+    # sharded as the decode plan lays the cache out (B over the data
+    # axes, C over "model"), JAX's out_shardings for a new buffer
+    fresh = S.decode_inputs(cfg, shape)["cache"]
+    cache_specs = S.prefill_cache_specs(cfg, shape, mesh)
 
     def prefill_step(params, batch):
         module = _module(params, cfg)
         if cfg.is_encoder_decoder:
-            cache = encdec.init_cache(cfg, module, batch["frames"], C)
+            frames = batch["frames"]
+            cache = {name: sharding.zeros(fresh[name].shape,
+                                          cache_specs[name], mesh,
+                                          dtype=fresh[name].dtype,
+                                          device=frames.device)
+                     for name in ("k", "v")}
+            cache.update(encdec.cross_cache(cfg, module, frames))
             return encdec.decode_step(module, cache, batch["tokens"][:, 0],
                                       0, cfg)
         logits, cache = lm.prefill(module, batch["tokens"], cfg, C,
@@ -175,7 +188,7 @@ def build_program(cfg, shape, mesh, accum: int = 1):
         return step, (params, opt_state, batch), lambda: _policy(mesh)
     if shape.kind == "prefill":
         batch = S.prefill_batch_shardings(S.prefill_inputs(cfg, shape), mesh)
-        return (make_prefill_step(cfg, shape), (params, batch),
+        return (make_prefill_step(cfg, shape, mesh), (params, batch),
                 lambda: _policy(mesh))
     tok, pos, cache = S.decode_shardings(cfg, shape, mesh,
                                          S.decode_inputs(cfg, shape))
@@ -215,16 +228,20 @@ def _failing_op(exc: BaseException, counter) -> str:
     return (counter.last_op if counter is not None else None) or "unknown"
 
 
-def skip_reason(cfg, shape):
+def skip_reason(cfg, shape, multi_pod: bool = False, accum: int = 1):
     """Why the combo is not traced, or None."""
     if shape.name == "long_500k" and cfg.name not in LONG_CONTEXT_ARCHS \
             and cfg.arch_type != "ssm":
         return "no sub-quadratic path"
-    if shape.kind == "prefill" and (cfg.arch_type == "ssm" or cfg.hybrid):
-        # JAX traces its scan body once (lax.scan); here every step is a
-        # Python iteration
-        return (f"prefill's sequential selective scan is a Python loop of "
-                f"{shape.seq_len:,} steps per layer: not traced")
+    if shape.kind in ("train", "prefill"):
+        rows = shape.global_batch // (accum if shape.kind == "train" else 1)
+        cards = math.prod((M.MULTI_POD_SHAPE if multi_pod
+                           else M.PRODUCTION_SHAPE)[:-1])
+        if rows % cards:
+            # the batch plan is the JAX package's, whose lowering refuses
+            # a batch its data axes do not divide
+            return (f"the reference refuses it: {rows} rows over "
+                    f"{cards} data cards")
     return None
 
 
@@ -233,7 +250,7 @@ def run_combo(arch: str, shape_name: str, *, multi_pod: bool = False,
               profile_top: int = 0, dump: str = None, out_dir: str = OUT_DIR):
     cfg = get_config(arch)
     shape = INPUT_SHAPES[shape_name]
-    reason = skip_reason(cfg, shape)
+    reason = skip_reason(cfg, shape, multi_pod, accum)
     if reason:
         result = {"arch": arch, "shape": shape_name, "status": "skipped",
                   "reason": reason, "torch": torch.__version__}

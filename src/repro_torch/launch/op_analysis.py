@@ -26,14 +26,22 @@ definitions:
     what it then dispatches: the local op at the shard's shapes and the
     collectives its sharding propagation issues.  The ops that DTensor
     runs under a ``FakeTensorMode`` to infer global shapes are not
-    counted.
+    counted, nor are the ops of the decomposition through which it
+    derives the sharding of an op it has no rule for.
   * Memory: the peak of the bytes held by storages that the step
     allocated (``temp_bytes``), from their creation to the moment the
     last tensor on them dies.  The step's arguments are not in it.
 
-A Python loop over layers runs every layer, so no trip-count
-correction is needed.  A kernel of the port launched through ``ctypes``
-is not an aten op and is not seen; the dry run's programs launch none.
+A Python loop over layers runs every layer, so it needs no trip count.
+Prefill's sequential scan is the exception: 2,048 blocks per layer at
+32,768 tokens, where JAX traces one ``lax.scan`` body and
+``hlo_analysis`` scales it by the loop's trip count.  On meta tensors,
+whose blocks all trace alike, the scan runs one full block inside
+``repro_torch.trips.repeated(n)`` (``models.layers.scan_blocks``), and
+the counter adds what it counts there n times: FLOPs, bytes and
+collectives, not ``temp_bytes``, a peak.  A kernel of the port
+launched through ``ctypes`` is not an aten op and is not seen; the dry
+run's programs launch none.
 """
 from __future__ import annotations
 
@@ -45,6 +53,8 @@ import torch
 from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import (TorchDispatchMode,
                                           _get_current_dispatch_mode_stack)
+
+from repro_torch.trips import trips as _trips
 
 _WIRE_FACTOR = {"all-reduce": 2.0}
 
@@ -60,7 +70,6 @@ _INDEXED_WRITES = {"index_put_", "_index_put_impl_", "index_copy_",
                    "scatter_", "scatter_add_", "index_add_"}
 _MATMULS = {"mm", "bmm", "addmm", "baddbmm", "mv", "dot", "linear",
             "addmv", "addbmm"}
-
 
 @dataclass
 class CostResult:
@@ -128,12 +137,16 @@ def matmul_flops(name: str, args, out) -> float:
     return 2.0 * res * a.shape[-1]
 
 
-def _in_shape_propagation() -> bool:
-    """DTensor infers output shapes by running the op on fake tensors;
-    those runs are not the card's work."""
+def _in_shape_propagation(args) -> bool:
+    """DTensor infers output shapes by running the op on fake tensors,
+    and derives the sharding of an op it has no rule for by running the
+    op's decomposition on meta tensors of the global shape that carry
+    a ``_spec`` (the first time a process meets the op: the result is
+    cached); those runs are not the card's work."""
     from torch._subclasses.fake_tensor import FakeTensorMode
-    return any(isinstance(m, FakeTensorMode)
-               for m in _get_current_dispatch_mode_stack())
+    return (any(isinstance(m, FakeTensorMode)
+                for m in _get_current_dispatch_mode_stack())
+            or any(hasattr(t, "_spec") for t in tensors(args)))
 
 
 def _where() -> str:
@@ -163,7 +176,7 @@ class OpCounter(TorchDispatchMode):
             return NotImplemented
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
-        if not _in_shape_propagation():
+        if not _in_shape_propagation((args, kwargs)):
             self._count(func, args, kwargs, out)
         return out
 
@@ -187,6 +200,8 @@ class OpCounter(TorchDispatchMode):
                 c.flops = matmul_flops(name, args, outs[0])
             c.bytes = float(self._io_bytes(name, ins, outs))
         self._track(ins, outs)
+        trips = _trips()
+        c = c.scaled(trips)
         self.cost.add(c)
         label = (_where(), self._label(func, outs))
         row = self.rows.setdefault(label, {"flops": 0.0, "bytes": 0.0,
@@ -195,7 +210,7 @@ class OpCounter(TorchDispatchMode):
         row["flops"] += c.flops
         row["bytes"] += c.bytes
         row["collective_bytes"] += c.collective_bytes
-        row["count"] += 1
+        row["count"] += trips
 
     @staticmethod
     def _io_bytes(name: str, ins, outs) -> int:

@@ -184,6 +184,18 @@ def decode_specs(cfg: ModelConfig, shape: InputShape, mesh):
     return tok, (), cache
 
 
+def prefill_cache_specs(cfg: ModelConfig, shape: InputShape, mesh):
+    """{"k", "v": spec} of the self-attention cache the encoder-decoder's
+    prefill hands to decode, as the decode plan lays it out for a batch
+    the data axes divide: B over them, C over "model" (where it divides
+    C)."""
+    b_ax = data_axes(mesh)
+    C = cache_len_for(cfg, shape)
+    c_ax = "model" if C % mesh_shape(mesh).get("model", 1) == 0 else None
+    spec = (None, b_ax, c_ax, None, None)
+    return {"k": spec, "v": spec}
+
+
 def train_batch_shardings(batch, mesh) -> Dict:
     return sharding.shard_tree(batch, train_batch_specs(batch, mesh), mesh)
 

@@ -41,6 +41,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import lm
 from repro_torch.models.lm import _dtype, _embed, param_dict  # noqa: F401
+from repro_torch.sharding import constrain
 
 _STACKS = ("enc_layers", "dec_layers")
 
@@ -151,17 +152,20 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
 # --------------------------------------------------------------------
 
 def _mlp(layer: EncDecLayer, x, cfg: ModelConfig):
-    h = L.rms_norm(x, layer.mlp_norm, cfg.rms_eps)
+    h = constrain(L.rms_norm(x, layer.mlp_norm, cfg.rms_eps), "batch", None,
+                  None)
     p = layer.mlp
     return x + L.gelu_mlp(h, p["up"], p["up_b"], p["down"], p["down_b"])
 
 
 def _cross_attention(p, x, enc_kv, cfg: ModelConfig):
     """x (B,Sq,d) queries (no RoPE) against the encoder's k/v
-    (B,F,Hk,hd): plain ``sdpa``, as in the JAX package."""
+    (B,F,Hk,hd): plain ``sdpa``, as in the JAX package (under a sharding
+    policy each card takes its own heads or query rows,
+    ``layers.policy_sdpa``)."""
     k, v = enc_kv
     q = L.split_heads(x @ p["q"], cfg.num_heads, cfg.resolved_head_dim)
-    out = L.sdpa(q, k, v, causal=False)
+    out = L.policy_sdpa(q, k, v, cfg, causal=False)
     return L.merge_heads(out) @ p["o"]
 
 
@@ -172,19 +176,28 @@ def encode(params: EncDecLM, frames, cfg: ModelConfig, *,
     x = frames.to(_dtype(cfg))
     positions = torch.arange(x.shape[1], device=x.device)
     for layer in params.enc_layers:
+        # pinned as the decoder's layers pin theirs (``lm.backbone``)
+        x = constrain(x, "batch", None, None)
         h = L.rms_norm(x, layer.attn_norm, cfg.rms_eps)
-        x = x + L.attention(layer.attn, h, cfg, causal=False,
-                            positions=positions, use_kernel=use_kernels)
+        x = constrain(x + L.attention(layer.attn, h, cfg, causal=False,
+                                      positions=positions,
+                                      use_kernel=use_kernels),
+                      "batch", None, None)
         x = _mlp(layer, x, cfg)
+    x = constrain(x, "batch", None, None)
     return L.rms_norm(x, params.enc_norm, cfg.rms_eps)
 
 
 def enc_kv(p_xattn, enc_out, cfg: ModelConfig):
-    """Encoder states -> cross-attention k, v (B,F,Hk,hd), no RoPE."""
+    """Encoder states -> cross-attention k, v (B,F,Hk,hd), no RoPE.
+    Under a sharding policy each is whole on every model card: the
+    projection's partial sums reduced once here, not left in the
+    cross-attention einsum of every decoder step (which stalls DTensor
+    for minutes on the 2-pod mesh)."""
     hd = cfg.resolved_head_dim
-    k = L.split_heads(enc_out @ p_xattn["k"], cfg.num_kv_heads, hd)
-    v = L.split_heads(enc_out @ p_xattn["v"], cfg.num_kv_heads, hd)
-    return k, v
+    return tuple(constrain(L.split_heads(enc_out @ p_xattn[w],
+                                         cfg.num_kv_heads, hd),
+                           "batch", None, None, None) for w in ("k", "v"))
 
 
 def _head(params: EncDecLM, x, cfg: ModelConfig):
@@ -197,14 +210,18 @@ def decode_forward(params: EncDecLM, tokens, enc_out, cfg: ModelConfig):
     x = _embed(params, tokens, cfg)
     positions = torch.arange(x.shape[1], device=x.device)
     for layer in params.dec_layers:
+        # pinned as the encoder's layers are
+        x = constrain(x, "batch", None, None)
         h = L.rms_norm(x, layer.attn_norm, cfg.rms_eps)
-        x = x + L.attention(layer.attn, h, cfg, causal=True,
-                            positions=positions)
+        x = constrain(x + L.attention(layer.attn, h, cfg, causal=True,
+                                      positions=positions),
+                      "batch", None, None)
         h = L.rms_norm(x, layer.xattn_norm, cfg.rms_eps)
-        x = x + _cross_attention(layer.xattn, h,
-                                 enc_kv(layer.xattn, enc_out, cfg), cfg)
+        x = constrain(x + _cross_attention(
+            layer.xattn, h, enc_kv(layer.xattn, enc_out, cfg), cfg),
+            "batch", None, None)
         x = _mlp(layer, x, cfg)
-    return _head(params, x, cfg)
+    return _head(params, constrain(x, "batch", None, None), cfg)
 
 
 def loss_fn(params: EncDecLM, batch, cfg: ModelConfig):
@@ -226,21 +243,29 @@ def loss_fn(params: EncDecLM, batch, cfg: ModelConfig):
 # decode with cache
 # --------------------------------------------------------------------
 
-def init_cache(cfg: ModelConfig, params: EncDecLM, frames, cache_len: int,
-               *, use_kernels: bool = False) -> Dict[str, torch.Tensor]:
+def cross_cache(cfg: ModelConfig, params: EncDecLM, frames, *,
+                use_kernels: bool = False) -> Dict[str, torch.Tensor]:
     """Runs the encoder once (``use_kernels``: through the flash wrapper)
-    and projects its states to every decoder layer's cross k/v; zeroed
-    self-attention k/v of ``cache_len`` slots.  On ``params``' device."""
-    dev = params.device
-    frames = torch.as_tensor(frames, device=dev)
+    and projects its states to every decoder layer's cross k/v: {"xk",
+    "xv"} (L,B,F,Hk,hd), on ``params``' device."""
+    frames = torch.as_tensor(frames, device=params.device)
     enc_out = encode(params, frames, cfg, use_kernels=use_kernels)
     xk, xv = zip(*(enc_kv(layer.xattn, enc_out, cfg)
                    for layer in params.dec_layers))
-    shape = (cfg.num_layers, frames.shape[0], cache_len, cfg.num_kv_heads,
-             cfg.resolved_head_dim)
+    return {"xk": torch.stack(xk), "xv": torch.stack(xv)}
+
+
+def init_cache(cfg: ModelConfig, params: EncDecLM, frames, cache_len: int,
+               *, use_kernels: bool = False) -> Dict[str, torch.Tensor]:
+    """``cross_cache`` and zeroed self-attention k/v of ``cache_len``
+    slots.  On ``params``' device."""
+    cross = cross_cache(cfg, params, frames, use_kernels=use_kernels)
+    shape = (cfg.num_layers, cross["xk"].shape[1], cache_len,
+             cfg.num_kv_heads, cfg.resolved_head_dim)
+    dev = params.device
     return {"k": torch.zeros(shape, dtype=_dtype(cfg), device=dev),
             "v": torch.zeros(shape, dtype=_dtype(cfg), device=dev),
-            "xk": torch.stack(xk), "xv": torch.stack(xv)}
+            **cross}
 
 
 def decode_step(params: EncDecLM, cache, token, pos, cfg: ModelConfig):

@@ -20,11 +20,13 @@ from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Replicate
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.sharding import (constrain, full, is_sharded, on_shards,
-                                  policy_model_size, shard_offset,
+                                  pin_grad, policy_model_size, shard_offset,
                                   whole_groups, whole_groups_in_grad)
+from repro_torch.trips import repeated
 
 # A window value meaning "attend to everything" for global layers.
 GLOBAL_WINDOW = (2 ** 31 - 1) // 2
@@ -120,8 +122,11 @@ def split_heads(t, heads: int, hd: int):
 def merge_heads(t):
     """(..., heads, hd) -> (..., heads * hd), a shard that would split the
     merged dim unevenly gathered first (as ``split_heads``)."""
-    t = whole_groups(t, t.dim() - 2, t.shape[-2])
-    return t.reshape(*t.shape[:-2], t.shape[-2] * t.shape[-1])
+    heads = t.shape[-2]
+    t = whole_groups(t, t.dim() - 2, heads)
+    merged = t.reshape(*t.shape[:-2], heads * t.shape[-1])
+    # the reshape's backward splits the merged dim into heads again
+    return whole_groups_in_grad(merged, merged.dim() - 1, heads)
 
 
 def qkv_project(p, x, cfg: ModelConfig, positions):
@@ -227,8 +232,10 @@ def repeat_kv(t, g: int):
     """(B,S,Hk,hd) -> (B,S,Hk*g,hd), kv head j serving query heads
     j*g .. j*g+g-1 (the grouping of ``sdpa``)."""
     B, S, Hk, hd = t.shape
-    return t[:, :, :, None, :].expand(B, S, Hk, g, hd).reshape(
+    rep = t[:, :, :, None, :].expand(B, S, Hk, g, hd).reshape(
         B, S, Hk * g, hd)
+    # the reshape's backward splits the heads into (Hk, g) again
+    return whole_groups_in_grad(rep, 2, Hk)
 
 
 def plan_window(cfg: ModelConfig, is_global: bool):
@@ -428,15 +435,21 @@ def _moe_block_flat(p, x, cfg: ModelConfig, *,
     slot_used = torch.zeros((E * C + 1,), dtype=x.dtype, device=r.slot.device)
     slot_used = slot_used.scatter_(0, r.slot, torch.ones_like(
         r.slot, dtype=x.dtype))[:E * C]
-    xe = (x[slot_token] * slot_used[:, None]).reshape(E, C, d)
+    # gathered straight into (E, C) and back out of it by (expert, slot)
+    # indices: a sharded (E*C, d) would have to be viewed as (E, C, d)
+    xe = x[slot_token.reshape(E, C)] * slot_used.reshape(E, C, 1)
     # under the sharding policy the capacity slots split over the data
-    # axes (each card runs its share of every expert's slots)
+    # axes (each card runs its share of every expert's slots), in the
+    # products too: left free, the FSDP shards of the expert weights may
+    # decide their layout and leave every slot on every card
     xe = constrain(xe, None, "batch", None)
-    h = F.silu(torch.bmm(xe, p["gate"])) * torch.bmm(xe, p["up"])
-    ye = torch.bmm(h, p["down"]).reshape(E * C, d)
+    h = F.silu(constrain(torch.bmm(xe, p["gate"]), None, "batch", "model")) \
+        * constrain(torch.bmm(xe, p["up"]), None, "batch", "model")
+    ye = constrain(torch.bmm(h, p["down"]), None, "batch", None)  # (E, C, d)
 
     w = r.topw.reshape(-1, 1).to(x.dtype) * r.kept.to(x.dtype)[:, None]
-    y = (ye[torch.clamp(r.slot, max=E * C - 1)] * w).reshape(T, K, d)
+    s = torch.clamp(r.slot, max=E * C - 1)
+    y = (ye[s // C, s % C] * w).reshape(T, K, d)
     y = y.sum(dim=1)
 
     if mc.num_shared:
@@ -492,7 +505,17 @@ def causal_conv1d(x, w, b, prev=None):
     ``prev``: (B,cw-1,di) raw inputs preceding x (the carried conv state
     of chunked prefill); None = zeros (sequence start).  The taps are
     unrolled and summed in x's dtype, as in JAX (``F.conv1d`` would
-    accumulate a bf16 input in f32)."""
+    accumulate a bf16 input in f32).  Sharded (DTensor) inputs convolve
+    each card's own batch rows and channels (``sharding.on_shards``):
+    the taps run along the sequence, which no card splits."""
+    chans = ("batch", None, "model")
+    return on_shards(
+        _conv1d, constrain(x, *chans), constrain(w, None, "model"),
+        constrain(b, "model"),
+        None if prev is None else constrain(prev, *chans))
+
+
+def _conv1d(x, w, b, prev):
     cw = w.shape[0]
     if prev is None:
         xp = F.pad(x, (0, 0, cw - 1, 0))
@@ -510,7 +533,27 @@ def conv_state(x_in, cw: int):
     (B, cw-1, di), left-padded with zeros when the sequence is shorter.
     (JAX's one-shot prefill slices ``x_in[:, -(cw-1):]``, which is short
     for a 1- or 2-token prompt; its chunked path pads, as here.)"""
+    S = x_in.shape[1]
+    if S >= cw - 1:
+        return x_in[:, S - (cw - 1):].clone()
     return F.pad(x_in, (0, 0, cw - 1, 0))[:, -(cw - 1):]
+
+
+def scan_blocks(u, S: int, sub: int):
+    """(lo, hi) of each block of ``sub`` steps over a sequence of S, the
+    last one ragged.  Meta tensors hold no values, so their full blocks
+    all trace alike: the first stands for every one of them, inside
+    ``trips.repeated`` (an ``OpCounter`` counts it S // sub times),
+    then the ragged tail.  Tensors with values run every block."""
+    full = S // sub
+    if u.device.type == "meta" and full > 1:
+        with repeated(full):
+            yield 0, sub
+        if S > full * sub:
+            yield full * sub, S
+        return
+    for lo in range(0, S, sub):
+        yield lo, min(lo + sub, S)
 
 
 def ssm_scan_seq(u, dt, A_log, Bmat, Cmat, sub: int = 16, h0=None):
@@ -527,6 +570,29 @@ def ssm_scan_seq(u, dt, A_log, Bmat, Cmat, sub: int = 16, h0=None):
     ``ssm_scan_chunked``).  Returns y (B,S,di) and h_last (B,di,n), both
     in u's dtype.
     """
+    return _scan_on_shards(
+        lambda u, dt, A_log, Bmat, Cmat, h0: _scan_seq(
+            u, dt, A_log, Bmat, Cmat, sub=sub, h0=h0),
+        u, dt, A_log, Bmat, Cmat, h0)
+
+
+def _scan_on_shards(scan, u, dt, A_log, Bmat, Cmat, h0=None):
+    """``scan(u, dt, A_log, Bmat, Cmat, h0)`` -> (y, h_last); sharded
+    (DTensor) inputs scan each card's own batch rows and channels
+    (``sharding.on_shards``), the recurrence running along the sequence,
+    which no card splits."""
+    Bsz, _, di = u.shape
+    chans = ("batch", None, "model")
+    return on_shards(
+        scan, constrain(u, *chans), constrain(dt, *chans),
+        constrain(A_log, "model", None), constrain(Bmat, "batch", None, None),
+        constrain(Cmat, "batch", None, None),
+        None if h0 is None else constrain(h0, "batch", "model", None),
+        outs=[(u.shape, chans),
+              ((Bsz, di, A_log.shape[1]), ("batch", "model", None))])
+
+
+def _scan_seq(u, dt, A_log, Bmat, Cmat, *, sub: int, h0):
     Bsz, S, di = u.shape
     n = A_log.shape[1]
     negA = -torch.exp(A_log.float())                      # (di,n)
@@ -534,8 +600,7 @@ def ssm_scan_seq(u, dt, A_log, Bmat, Cmat, sub: int = 16, h0=None):
          if h0 is None else h0.float())
     y = torch.empty((Bsz, S, di), dtype=torch.float32, device=u.device)
     hs = torch.empty((sub, Bsz, di, n), dtype=torch.float32, device=u.device)
-    for lo in range(0, S, sub):
-        hi = min(lo + sub, S)
+    for lo, hi in scan_blocks(u, S, sub):
         dtf = dt[:, lo:hi].float()
         duf = dtf * u[:, lo:hi].float()                   # (B,s,di)
         a = torch.exp(dtf[..., None] * negA)              # (B,s,di,n)
@@ -545,6 +610,9 @@ def ssm_scan_seq(u, dt, A_log, Bmat, Cmat, sub: int = 16, h0=None):
             h = torch.addcmul(x[t], a[t], h, out=hs[t])
         y[:, lo:hi] = torch.einsum("sbdn,bsn->bsd", hs[:hi - lo],
                                    Cmat[:, lo:hi].float())
+        # freed before the next block's: every block peaks alike, so
+        # the one block traced on meta tensors gives the loop's peak
+        del dtf, duf, a, x
     # h is a view of the step buffer: hand back a tensor of its own
     return y.to(u.dtype), h.to(u.dtype, copy=True)
 
@@ -575,6 +643,13 @@ def ssm_scan_chunked(u, dt, A_log, Bmat, Cmat, chunk: int = 256):
     ragged last chunk is shorter instead of padded.  Returns y (B,S,di)
     and the final state (B,di,n), both in u's dtype.
     """
+    return _scan_on_shards(
+        lambda u, dt, A_log, Bmat, Cmat, h0: _scan_chunked(
+            u, dt, A_log, Bmat, Cmat, chunk=chunk),
+        u, dt, A_log, Bmat, Cmat)
+
+
+def _scan_chunked(u, dt, A_log, Bmat, Cmat, *, chunk: int):
     Bsz, S, di = u.shape
     n = A_log.shape[1]
     negA = -torch.exp(A_log.float())
@@ -594,12 +669,34 @@ def ssm_scan_chunked(u, dt, A_log, Bmat, Cmat, chunk: int = 256):
     return torch.cat(ys, dim=1), h0.to(u.dtype)
 
 
+def _in_proj(x, w):
+    """(x_in, z), the two halves of ``x @ w``.  A DTensor ``w`` (columns
+    over the model axis) is cut into its halves before the product, each
+    half's columns then spread over every card: the product's halves
+    would each lie on half the cards, a layout DTensor's pad (the conv)
+    cannot take on torch 2.11.  Each half's gradient is reduced over
+    the data axes while it is still laid out like the half, then
+    gathered (``pin_grad``), the transpose of the forward's gather."""
+    if not is_sharded(w):
+        return torch.chunk(x @ w, 2, dim=-1)
+    mesh, places = w.device_mesh, list(w.placements)
+    whole = w.redistribute(mesh, [Replicate() if q.is_shard(1) else q
+                                  for q in places])
+    di = w.shape[1] // 2
+    return tuple(constrain(x @ pin_grad(half.redistribute(mesh, places)),
+                           "batch", None, "model")
+                 for half in (whole[:, :di], whole[:, di:]))
+
+
 def _mamba_in(p, x, cfg: ModelConfig, prev=None):
     """The shared front of a Mamba block: (x_in, z, x_c, dt, Bm, Cm)."""
     n, dtr = cfg.ssm.state_dim, cfg.dt_rank
-    x_in, z = torch.chunk(x @ p["in_proj"], 2, dim=-1)
+    x_in, z = _in_proj(x, p["in_proj"])
     x_c = F.silu(causal_conv1d(x_in, p["conv_w"], p["conv_b"], prev=prev))
-    dt_r, Bm, Cm = torch.split(x_c @ p["x_proj"], [dtr, n, n], dim=-1)
+    # x_proj contracts the model-sharded channels: reduced here, so that
+    # dt_w's product splits its channels instead of gathering dt_w
+    dt_r, Bm, Cm = torch.split(constrain(x_c @ p["x_proj"], "batch", None,
+                                         None), [dtr, n, n], dim=-1)
     dt = F.softplus((dt_r @ p["dt_w"]).float()
                     + p["dt_b"][None, None]).to(x.dtype)
     return x_in, z, x_c, dt, Bm, Cm

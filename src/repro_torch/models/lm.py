@@ -62,7 +62,8 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import layers as L
-from repro_torch.sharding import constrain, is_sharded, replicated
+from repro_torch.sharding import (constrain, is_sharded, policy_model_size,
+                                  replicated)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -297,7 +298,11 @@ def _ffn(layer: DecoderLayer, x, cfg: ModelConfig, grouped: bool):
         return L.swiglu(h2, layer.gate, layer.up, layer.down), None
     if grouped and cfg.moe.dispatch == "grouped":
         return L.moe_block(layer.moe, h2, cfg)
-    y, aux = L.moe_block(layer.moe, h2.reshape(-1, h2.shape[-1]), cfg)
+    # the tokens as rows, batch-over-data both ways: the dispatch's
+    # gradient would otherwise come back split in a way the view back to
+    # (B, S, d) cannot unflatten
+    rows = constrain(h2.reshape(-1, h2.shape[-1]), "batch", None)
+    y, aux = L.moe_block(layer.moe, rows, cfg)
     # tokens back to batch-over-data before they are rows again
     return constrain(y, "batch", None).reshape(h2.shape), aux
 
@@ -326,7 +331,10 @@ def _layer_apply(layer: DecoderLayer, x, cfg: ModelConfig, is_global: bool,
     if cfg.hybrid:
         m = L.mamba_forward(layer.mamba, h, cfg, use_kernel=use_kernels)
         a = 0.5 * (a + m)          # Hymba's parallel-head mean fusion
-    x = x + a
+    # the attention's partial sums reduced here: left free, the residual
+    # stays a partial sum, and so does its gradient, which makes the
+    # backward of the o projection gather its input
+    x = constrain(x + a, "batch", None, None)
     y, aux = _ffn(layer, x, cfg, grouped=True)
     return x + y, aux
 
@@ -349,6 +357,8 @@ def backbone(params: DecoderLM, tokens, cfg: ModelConfig, *,
         x, aux = _layer_apply(layer, x, cfg, g, positions, use_kernels)
         if aux is not None:
             aux_sum = aux_sum + aux
+    # so that the head's gradient reaches the last layer reduced
+    x = constrain(x, "batch", None, None)
     return L.rms_norm(x, params.final_norm, cfg.rms_eps), aux_sum
 
 
@@ -371,6 +381,17 @@ def gold_logits(logits, t):
     return torch.sum(logits * (vocab == t), dim=-1)
 
 
+def _vocab_split(logits):
+    """Logits pinned to their vocab over the model axis where it divides
+    the vocab (a sharding policy active), the gradient too: left free,
+    the head's weight gradient may be computed over the whole vocab on
+    every card."""
+    m = policy_model_size()
+    if m and logits.shape[-1] % m == 0:
+        return constrain(logits, "batch", None, "model")
+    return logits
+
+
 def chunked_ce(x, head, tokens, P: int, chunk: int):
     """Sequence-chunked cross-entropy: each step computes a (B, chunk, V)
     slab of logits, never the full (B, S, V).  ``head``: (d, V).
@@ -383,7 +404,7 @@ def chunked_ce(x, head, tokens, P: int, chunk: int):
     tgt = tokens[:, 1:]
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     for lo in range(0, n, chunk):
-        logits = (hs[:, lo:lo + chunk] @ head).float()
+        logits = _vocab_split((hs[:, lo:lo + chunk] @ head).float())
         logz = torch.logsumexp(logits, dim=-1)
         t = tgt[:, lo:lo + chunk, None].long()
         gold = gold_logits(logits, t)

@@ -33,8 +33,10 @@ import re
 from typing import Dict, Optional, Tuple
 
 import torch
-from torch.distributed.tensor import (DTensor, Replicate, Shard,
+from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
                                       distribute_tensor)
+from torch.distributed.tensor._utils import \
+    compute_local_shape_and_global_offset
 
 Spec = Tuple
 
@@ -177,6 +179,20 @@ def distribute(t: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
     return distribute_tensor(t, mesh, placements(spec, mesh))
 
 
+def zeros(shape, spec, mesh, *, dtype, device) -> torch.Tensor:
+    """Zeros of global ``shape`` laid out by ``spec``, each card
+    allocating only its own shard (a buffer created sharded, as JAX's
+    ``out_shardings`` make it): nothing is sent, and on a mesh of one
+    device it is a plain tensor.  ``torch.distributed.tensor.zeros``
+    would allocate on the mesh's device type, never on ``meta``."""
+    if mesh.size() == 1:
+        return torch.zeros(shape, dtype=dtype, device=device)
+    places = placements(spec, mesh)
+    local, _ = compute_local_shape_and_global_offset(shape, mesh, places)
+    return _from_shards(torch.zeros(local, dtype=dtype, device=device),
+                        mesh, places, shape)
+
+
 def shard_tree(tree, specs, mesh):
     """``distribute`` every leaf of a nested dict by the matching spec."""
     if isinstance(tree, dict):
@@ -240,23 +256,53 @@ def whole_groups(x, dim: int, groups: int):
     return x.redistribute(x.device_mesh, places)
 
 
-def on_shards(fn, *xs):
+def on_shards(fn, *xs, outs=None):
     """``fn`` run on each card's own shards of the DTensors ``xs``; its
     result, of ``xs[0]``'s shape, a DTensor laid out as ``xs[0]``: for
     work that needs nothing of the other cards' shards, such as
-    attention within a card's own heads.  Gradients flow back to the
-    shards.  Plain tensors go to ``fn`` as they are."""
+    attention within a card's own heads.  ``outs``: for an ``fn`` that
+    returns a tuple, one (global shape, dims named as for ``constrain``)
+    per result.  Gradients flow back to the shards; an input replicated
+    along a mesh dim that the result is split along gets a partial sum
+    there (each card's share of its gradient).  Plain tensors go to
+    ``fn`` as they are."""
     x0 = xs[0]
     if not isinstance(x0, DTensor):
         return fn(*xs)
-    out = fn(*(x.to_local() if isinstance(x, DTensor) else x for x in xs))
-    shape = tuple(x0.shape)
+    mesh = x0.device_mesh
+    if outs is None:
+        layouts = [(x0.shape, x0.placements)]
+    else:
+        layouts = [(shape, placements(_policy_spec(dims), mesh))
+                   for shape, dims in outs]
+    split = {i for _, places in layouts for i, q in enumerate(places)
+             if q.is_shard()}
+
+    def local(x):
+        if not isinstance(x, DTensor):
+            return x
+        return x.to_local(grad_placements=[
+            Partial() if q.is_replicate() and i in split else q
+            for i, q in enumerate(x.placements)])
+
+    out = fn(*(local(x) for x in xs))
+    if outs is None:
+        out = (out,)
+    res = tuple(_from_shards(o, mesh, places, shape)
+                for o, (shape, places) in zip(out, layouts))
+    return res[0] if outs is None else res
+
+
+def _from_shards(local, mesh, places, shape):
+    """A DTensor of global ``shape`` laid out by ``places`` whose shard
+    on this card is ``local``."""
+    shape = tuple(shape)
     stride = [1] * len(shape)
     for d in range(len(shape) - 2, -1, -1):
         stride[d] = stride[d + 1] * shape[d + 1]
-    return DTensor.from_local(out.contiguous(), x0.device_mesh,
-                              x0.placements, run_check=False,
-                              shape=torch.Size(shape), stride=tuple(stride))
+    return DTensor.from_local(local.contiguous(), mesh, places,
+                              run_check=False, shape=torch.Size(shape),
+                              stride=tuple(stride))
 
 
 def shard_offset(x, dim: int) -> int:
@@ -333,16 +379,10 @@ def policy_model_size() -> int:
     return pol["model_size"] if pol else 0
 
 
-def constrain(x, *dims):
-    """Redistribute the DTensor ``x`` so that each dim lies as named:
-    "batch" over the policy's batch axes, "model" over its model axis,
-    None replicated.  Returns ``x`` itself when no policy is active or
-    ``x`` is a plain tensor.  Unlike JAX's sharding constraint, whose
-    transpose constrains the cotangent alike, the gradient's layout is
-    left to DTensor."""
+def _policy_spec(dims) -> Spec:
+    """The spec of ``dims`` under the active policy: "batch" over its
+    batch axes, "model" over its model axis, None replicated."""
     pol = _ACT_POLICY.get()
-    if pol is None or not isinstance(x, DTensor):
-        return x
     spec = []
     for d in dims:
         if d == "batch":
@@ -351,5 +391,50 @@ def constrain(x, *dims):
             spec.append(pol["model"])
         else:
             spec.append(None)
-    return x.redistribute(x.device_mesh, placements(tuple(spec),
-                                                    x.device_mesh))
+    return tuple(spec)
+
+
+class _Constrain(torch.autograd.Function):
+    """Redistribution to fixed placements, whose backward redistributes
+    the gradient to the same placements (the transpose of JAX's sharding
+    constraint).  A dim those placements would shard unevenly (whisper's
+    1,500 frames over 8 cards) is gathered in the gradient instead: the
+    backward of the view before it would move the uneven shards with an
+    all-to-all, whose padded result no view takes."""
+
+    @staticmethod
+    def forward(ctx, x, places):
+        ctx.places = places
+        return x.redistribute(x.device_mesh, places)
+
+    @staticmethod
+    def backward(ctx, grad):
+        mesh = grad.device_mesh
+        places = [Replicate() if p.is_shard() and grad.shape[p.dim]
+                  % mesh.size(i) else p for i, p in enumerate(ctx.places)]
+        return grad.redistribute(mesh, places), None
+
+
+def pin_grad(x):
+    """``x`` itself, whose gradient is first laid out as ``x`` is (a
+    DTensor; a plain tensor is returned as it is).  Before a move
+    (``redistribute``) it makes the move's backward start from a
+    gradient of the moved layout: a partial sum is then reduced while
+    it is still a shard, where DTensor may otherwise gather it over the
+    other axes first."""
+    if not isinstance(x, DTensor):
+        return x
+    return _Constrain.apply(x, tuple(x.placements))
+
+
+def constrain(x, *dims):
+    """Redistribute the DTensor ``x`` so that each dim lies as named:
+    "batch" over the policy's batch axes, "model" over its model axis,
+    None replicated.  Its gradient is laid out the same way, as JAX's
+    sharding constraint transposes to the same constraint on the
+    cotangent.  Returns ``x`` itself when no policy is active or ``x``
+    is a plain tensor."""
+    if _ACT_POLICY.get() is None or not isinstance(x, DTensor):
+        return x
+    return _Constrain.apply(x, tuple(placements(_policy_spec(dims),
+                                                x.device_mesh)))

@@ -264,22 +264,46 @@ def test_model_flops_per_chip_equal_jax(arch):
                 == jroofline.model_flops_per_chip(arch, shape, chips, accum)
 
 
-def test_skip_and_error_records_name_the_op(tmp_path):
+def test_skip_and_error_records_name_the_op(tmp_path, monkeypatch):
     r = dryrun.run_combo("qwen3-0.6b", "long_500k", out_dir=str(tmp_path))
-    assert r["status"] == "skipped"
-    # SSM prefill is not traced: its scan is a Python loop of S steps
-    r = dryrun.run_combo("hymba-1.5b", "prefill_32k", out_dir=str(tmp_path))
-    assert r["status"] == "skipped" and "32,768 steps" in r["reason"]
+    assert r["status"] == "skipped" and r["reason"] == "no sub-quadratic path"
     assert r["torch"] == torch.__version__
     assert not list(tmp_path.iterdir())              # a skip saves nothing
-    # whisper's prefill writes its first token into a self-attention
-    # cache that the encoder pass made as a plain tensor
+    # hybrid prefill traces its scan (one block per layer, trip-scaled),
+    # and whisper's prefill writes into a sharded self-attention cache
+    for arch in ("hymba-1.5b", "whisper-small"):
+        r = dryrun.run_combo(arch, "prefill_32k", out_dir=str(tmp_path))
+        assert r["status"] == "ok" and r["flops"] > 0
+    # an indexed write into that sharded cache fails, and the record
+    # names the op
+    monkeypatch.setattr(lm, "write_slot", lambda cache, rows, slot_b, new:
+                        cache.__setitem__((rows, slot_b), new))
     r = dryrun.run_combo("whisper-small", "prefill_32k",
                          out_dir=str(tmp_path))
     assert r["status"] == "error" and r["op"] == "aten.index_put_.default"
     saved = json.loads((tmp_path / "whisper-small__prefill_32k__h100_32x8"
                         ".json").read_text())
     assert saved["op"] == r["op"] and saved["torch"] == torch.__version__
+
+
+def test_a_batch_the_data_axes_do_not_divide_is_skipped(tmp_path):
+    """The batch plans are the JAX package's (test_torch_sharding), and
+    its lowering refuses a batch that its data axes do not divide:
+    prefill_32k's 32 rows over the 2-pod mesh's 64 data cards, or a
+    train step whose accumulation leaves 32 rows per microbatch.  Such a
+    combo is a skip record that says so, and saves nothing."""
+    for shape, accum in (("prefill_32k", 1), ("train_4k", 8)):
+        r = dryrun.run_combo("microllama-300m", shape, multi_pod=True,
+                             accum=accum, out_dir=str(tmp_path))
+        assert r["status"] == "skipped", shape
+        assert r["reason"] == ("the reference refuses it: 32 rows over 64 "
+                               "data cards")
+    assert not list(tmp_path.iterdir())
+    cfg = get_config("microllama-300m")
+    shapes = dryrun.INPUT_SHAPES
+    assert dryrun.skip_reason(cfg, shapes["prefill_32k"]) is None
+    assert dryrun.skip_reason(cfg, shapes["train_4k"], True, 4) is None
+    assert dryrun.skip_reason(cfg, shapes["decode_32k"], True) is None
 
 
 def test_decode_combo_and_roofline_rows(tmp_path, capsys):
