@@ -136,11 +136,18 @@ any failure raises and exits non-zero:
 
   12. the analysis layer: ``python -m repro_torch.launch.dryrun`` for
      microllama-300m's four shapes and the train_4k of phi3-medium-14b
-     and grok-1-314b (FSDP) and qwen3-0.6b on the h100_32x8 mesh, each
-     in a fresh interpreter (all started together): one line per combo
-     (status and torch version; per-card FLOPs, bytes, wire and temp
-     bytes, or the op an error names) and the roofline rows of
-     ``launch.roofline``; the phase fails if a combo errors.  Then the count
+     and grok-1-314b (FSDP) and qwen3-0.6b, the prefills that trace a
+     scan or a sharded cache, and one combo of each kind torch 2.11 once
+     refused (qwen3-0.6b decode_32k, deepseek-moe-16b prefill_32k,
+     whisper-small train_4k, hymba-1.5b long_500k) on the h100_32x8
+     mesh, and four combos again as the baseline (``REPRO_BASELINE=1``,
+     no activation constraints, full prefill logits), each in a fresh
+     interpreter (eight at a time): one line per combo (status
+     and torch version; per-card FLOPs, bytes, wire and temp bytes, or
+     the op an error names), each baseline count beside the policy's,
+     and the roofline rows of ``launch.roofline``; the phase fails if a
+     combo errors or a pinned combo counts other FLOPs than torch
+     2.13 does on the CPU.  Then the count
      held against the card on the (1, 1) ``make_host_mesh()``: the dry
      run's own programs at one card's shapes (MicroLlama-300M bf16
      prefill of 4 x 512 with last-token logits; one AdamW inner step at
@@ -183,6 +190,7 @@ times (its kernels take milliseconds).
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -2229,16 +2237,29 @@ def phase_cluster_mp():
 # ----------------------------------------------------------------------
 
 # (arch, shape) of the dry runs: MicroLlama-300M's four shapes, two FSDP
-# combos (more than 5e9 parameters), qwen3-0.6b's training step, and the
+# combos (more than 5e9 parameters), qwen3-0.6b's training step, the
 # prefills that trace a trip-scaled scan (ssm, hybrid) or write a sharded
-# self-attention cache (encoder-decoder), which must all record "ok"
+# self-attention cache (encoder-decoder), and one combo of each kind that
+# torch 2.11 refused before PR 21 (decode attention over a cache split
+# along C, the shared experts' products, an uneven head merge, the hybrid
+# decode's partial sums), which must all record "ok"
 PREFILL_COMBOS = [("falcon-mamba-7b", "prefill_32k"),
                   ("hymba-1.5b", "prefill_32k"),
                   ("whisper-small", "prefill_32k")]
+REFUSED_COMBOS = [("qwen3-0.6b", "decode_32k"),
+                  ("deepseek-moe-16b", "prefill_32k"),
+                  ("whisper-small", "train_4k"),
+                  ("hymba-1.5b", "long_500k")]
 DRYRUN_COMBOS = [("microllama-300m", s) for s in
                  ("train_4k", "prefill_32k", "decode_32k", "long_500k")] \
     + [("phi3-medium-14b", "train_4k"), ("grok-1-314b", "train_4k"),
-       ("qwen3-0.6b", "train_4k")] + PREFILL_COMBOS
+       ("qwen3-0.6b", "train_4k")] + PREFILL_COMBOS + REFUSED_COMBOS
+# the baseline's dry runs (REPRO_BASELINE=1, written to their own
+# directory), each printed beside the policy's count of the same combo
+BASELINE_COMBOS = [("microllama-300m", "train_4k"),
+                   ("microllama-300m", "prefill_32k"),
+                   ("falcon-mamba-7b", "prefill_32k"),
+                   ("whisper-small", "prefill_32k")]
 # per-card train_4k FLOPs that the CPU dry run counts on torch 2.13
 # (`python -m repro_torch.launch.dryrun --all`, PERF.md section 5); the
 # card's torch must count the same: with the gradients constrained like
@@ -2248,14 +2269,33 @@ TRAIN_FLOPS_TORCH_2_13 = {"microllama-300m": 9154526183424.0,
                           "qwen3-0.6b": 26190850818048.0,
                           "phi3-medium-14b": 388863256166400.0,
                           "grok-1-314b": 2612692493795328.0}
+# per-card FLOPs of the former refusals and of the baseline combos on
+# the CPU's torch 2.13 (the same sweeps, the second with
+# REPRO_BASELINE=1), which the card's torch must count too
+FLOPS_TORCH_2_13 = {
+    **{(arch, "train_4k"): f for arch, f in TRAIN_FLOPS_TORCH_2_13.items()},
+    ("qwen3-0.6b", "decode_32k"): 4354080768.0,
+    ("deepseek-moe-16b", "prefill_32k"): 53725798334464.0,
+    ("whisper-small", "train_4k"): 7090378113024.0,
+    ("hymba-1.5b", "long_500k"): 403456400.0}
+BASELINE_FLOPS_TORCH_2_13 = {
+    ("microllama-300m", "train_4k"): 31883493113856.0,
+    ("microllama-300m", "prefill_32k"): 55003498676224.0,
+    ("falcon-mamba-7b", "prefill_32k"): 57363583205376.0,
+    ("whisper-small", "prefill_32k"): 120343933632.0}
 
 
-def dryrun_combo(arch: str, shape: str, out: Path) -> dict:
+def dryrun_combo(arch: str, shape: str, out: Path,
+                 baseline: bool = False) -> dict:
     """``python -m repro_torch.launch.dryrun`` for one combo in a fresh
     interpreter (its fake process group of 256 ranks lives and dies
-    there) -> its artifact (``ok`` or ``error``: one is written even
-    when the run exits 1), or the skip it printed."""
+    there; ``baseline``: with ``REPRO_BASELINE=1``) -> its artifact
+    (``ok`` or ``error``: one is written even when the run exits 1), or
+    the skip it printed."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env.pop("REPRO_BASELINE", None)
+    if baseline:
+        env["REPRO_BASELINE"] = "1"
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
          "--shape", shape, "--out", str(out)],
@@ -2263,7 +2303,7 @@ def dryrun_combo(arch: str, shape: str, out: Path) -> dict:
     art = out / f"{arch}__{shape}__h100_32x8.json"
     if proc.returncode == 0 and not art.exists():      # a skip saves nothing
         return {"arch": arch, "shape": shape, "status": "skipped",
-                "torch": torch.__version__}
+                "torch": torch.__version__, "baseline": baseline}
     if not art.exists():
         raise AssertionError(f"dry run {arch} {shape} failed "
                              f"(exit {proc.returncode}): {proc.stdout[-1500:]}"
@@ -2320,9 +2360,9 @@ def card_check(label: str, cfg, shape, make_args, iters: int = 5,
 
 
 def phase_analysis() -> dict:
-    """Phase 12: the dry run of ``DRYRUN_COMBOS`` on h100_32x8 (each in
-    its own interpreter, all started together) and their roofline rows;
-    then the count held against the card."""
+    """Phase 12: the dry run of ``DRYRUN_COMBOS`` and ``BASELINE_COMBOS``
+    on h100_32x8 (each in its own interpreter, eight at a time) and
+    their roofline rows; then the count held against the card."""
     import torch.distributed as dist
 
     from repro_torch import models
@@ -2331,12 +2371,21 @@ def phase_analysis() -> dict:
     from repro_torch.configs.base import InputShape
     from repro_torch.launch import roofline
     out = ROOT / "build" / "chip_smoke_dryrun"
-    out.mkdir(parents=True, exist_ok=True)
-    for old in out.glob("*.json"):
-        old.unlink()
-    with ThreadPoolExecutor(len(DRYRUN_COMBOS)) as pool:
-        results = list(pool.map(lambda c: dryrun_combo(*c, out),
-                                DRYRUN_COMBOS))
+    out_base = ROOT / "build" / "chip_smoke_dryrun_baseline"
+    for d in (out, out_base):
+        d.mkdir(parents=True, exist_ok=True)
+        for old in d.glob("*.json"):
+            old.unlink()
+    runs = [(c, out, False) for c in DRYRUN_COMBOS] \
+        + [(c, out_base, True) for c in BASELINE_COMBOS]
+    # eight interpreters at a time, one per host core, the card's cache
+    # of the earlier phases handed back first
+    gc.collect()
+    torch.cuda.empty_cache()
+    with ThreadPoolExecutor(min(len(runs), 8)) as pool:
+        done = list(pool.map(lambda r: dryrun_combo(*r[0], r[1], r[2]),
+                             runs))
+    results, baselines = done[:len(DRYRUN_COMBOS)], done[len(DRYRUN_COMBOS):]
     for r in results:
         if r["status"] == "ok":
             emit("analysis_dryrun", arch=r["arch"], shape=r["shape"],
@@ -2368,23 +2417,41 @@ def phase_analysis() -> dict:
         raise AssertionError(f"dry runs failed on torch {torch.__version__}:"
                              f" {failed}")
     not_ok = [(r["arch"], r["shape"], r["status"]) for r in results
-              if (r["arch"], r["shape"]) in PREFILL_COMBOS
+              if (r["arch"], r["shape"]) in PREFILL_COMBOS + REFUSED_COMBOS
               and r["status"] != "ok"]
     if not_ok:
-        raise AssertionError(f"prefill dry runs not traced: {not_ok}")
+        raise AssertionError(f"dry runs not traced: {not_ok}")
     differ = []
     for r in results:
-        if r["shape"] == "train_4k":
-            ref = TRAIN_FLOPS_TORCH_2_13[r["arch"]]
-            emit("analysis_train_versions", arch=r["arch"], torch=r["torch"],
-                 flops=r["flops"], flops_torch_2_13=ref,
-                 equal=r["flops"] == ref)
-            if r["flops"] != ref:
-                differ.append((r["arch"], r["flops"], ref))
+        ref = FLOPS_TORCH_2_13.get((r["arch"], r["shape"]))
+        if ref is None:
+            continue
+        emit("analysis_versions", arch=r["arch"], shape=r["shape"],
+             torch=r["torch"], flops=r["flops"], flops_torch_2_13=ref,
+             equal=r["flops"] == ref)
+        if r["flops"] != ref:
+            differ.append((r["arch"], r["shape"], r["flops"], ref))
+    policy = {(r["arch"], r["shape"]): r for r in results}
+    for r in baselines:
+        key = (r["arch"], r["shape"])
+        ref = BASELINE_FLOPS_TORCH_2_13[key]
+        emit("analysis_baseline", arch=r["arch"], shape=r["shape"],
+             status=r["status"], torch=r["torch"],
+             baseline=r.get("baseline"), flops=r.get("flops"),
+             flops_torch_2_13=ref, policy_flops=policy[key]["flops"],
+             bytes=r.get("bytes_accessed"),
+             policy_bytes=policy[key]["bytes_accessed"],
+             wire_bytes=r.get("collective_wire_bytes"),
+             op=r.get("op"))
+        if r["status"] != "ok" or r.get("baseline") is not True:
+            raise AssertionError(f"baseline dry run {key} not traced as the "
+                                 f"baseline: {r['status']} {r.get('op')}")
+        if r["flops"] != ref:
+            differ.append((r["arch"], r["shape"], "baseline", r["flops"],
+                           ref))
     if differ:
-        raise AssertionError(f"train_4k FLOPs per card on torch "
-                             f"{torch.__version__} differ from torch "
-                             f"2.13's: {differ}")
+        raise AssertionError(f"FLOPs per card on torch {torch.__version__} "
+                             f"differ from torch 2.13's: {differ}")
 
     cfg = get_config("microllama-300m")
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:"
@@ -2419,7 +2486,7 @@ def phase_analysis() -> dict:
         del fparams
     finally:
         dist.destroy_process_group()
-    return {"dryrun": results, "card": checks}
+    return {"dryrun": results, "baseline": baselines, "card": checks}
 
 
 def main() -> int:

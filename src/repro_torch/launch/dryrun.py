@@ -37,6 +37,24 @@ step (eager PyTorch compiles nothing, and ``generated_code_bytes`` is
 (``op_analysis``).  The port's training does not remat (the JAX loss
 does), so its train-step temp bytes run above the JAX package's.
 
+``REPRO_BASELINE=1`` (read into ``BASELINE`` at import, as the JAX
+package does) traces the baseline: the port's programs without their
+activation constraints (``sharding.constrain`` and ``policy_sdpa``'s
+placement off) and with full-sequence prefill logits; decode is the same
+program in both modes, since both packages lower it without the policy.
+Every artifact records ``baseline``; ``--out`` keeps the two sweeps
+apart (the file names are the JAX package's).  What the baseline lays
+out, DTensor's sharding propagation decides, and that is not GSPMD's:
+on a reduced train step over a fake (2, 4) mesh the port's baseline
+counts 1.72x (MicroLlama, 5 / 1 heads) and 1.43x (deepseek-moe-16b) the
+even split per card, where JAX's baseline counts 1.000x and 1.176x, as
+its policy does.  So the baseline is held to JAX's count on one card
+only.  The layouts DTensor needs to trace at all (the scans' and the
+conv's ``on_shards``, the decode attention's splits, a head merge or a
+row split that no view takes) do not depend on the policy, nor do the
+rules that make torch 2.11 and 2.13 count alike: a partial sum reduced
+before a norm, attention's gradient laid out as its output.
+
 ``--profile`` prints the top cost centres of one combo (the counterpart
 of ``repro/launch/profile.py``; the port's ``launch.profile`` is the
 card's ``torch.profiler`` report instead).
@@ -70,6 +88,13 @@ from repro_torch.models import encdec, lm
 
 OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                        "build", "dryrun")
+
+# REPRO_BASELINE=1 traces the paper-faithful baseline configuration, as
+# the JAX package's switch lowers it: no activation-sharding constraints
+# (``_policy`` opens none, so ``sharding.constrain`` and
+# ``layers.policy_sdpa``'s placement are off) and full-sequence prefill
+# logits.  Read here only; the models know nothing of it.
+BASELINE = os.environ.get("REPRO_BASELINE", "") == "1"
 
 
 def big_archs():
@@ -153,7 +178,7 @@ def make_prefill_step(cfg, shape, mesh):
                                       0, cfg)
         logits, cache = lm.prefill(module, batch["tokens"], cfg, C,
                                    prefix_emb=batch.get("prefix_emb"),
-                                   last_only=True)
+                                   last_only=not BASELINE)
         return logits[:, -1], cache
 
     return prefill_step
@@ -167,6 +192,8 @@ def make_decode_step(cfg):
 
 
 def _policy(mesh):
+    if BASELINE:
+        return contextlib.nullcontext()
     return sharding.activation_policy(
         M.data_axes(mesh), model_size=sharding.mesh_shape(mesh)["model"])
 
@@ -253,7 +280,8 @@ def run_combo(arch: str, shape_name: str, *, multi_pod: bool = False,
     reason = skip_reason(cfg, shape, multi_pod, accum)
     if reason:
         result = {"arch": arch, "shape": shape_name, "status": "skipped",
-                  "reason": reason, "torch": torch.__version__}
+                  "reason": reason, "torch": torch.__version__,
+                  "baseline": BASELINE}
         if verbose:
             _print_result(result)
         return result
@@ -273,6 +301,7 @@ def run_combo(arch: str, shape_name: str, *, multi_pod: bool = False,
             result = {
                 "arch": arch, "shape": shape_name, "mesh": mesh_name,
                 "status": "ok", "accum": accum, "torch": torch.__version__,
+                "baseline": BASELINE,
                 "lower_s": round(t_lower, 1), "compile_s": round(t_trace, 1),
                 "flops": res["flops"],
                 "bytes_accessed": res["bytes"],
@@ -300,7 +329,7 @@ def run_combo(arch: str, shape_name: str, *, multi_pod: bool = False,
         except Exception as e:  # noqa: BLE001 -- a dry-run failure is a record
             result = {"arch": arch, "shape": shape_name, "mesh": mesh_name,
                       "status": "error", "torch": torch.__version__,
-                      "op": _failing_op(e, counter),
+                      "baseline": BASELINE, "op": _failing_op(e, counter),
                       "error": f"{type(e).__name__}: {str(e)[:1000]}",
                       "trace": traceback.format_exc()[-2000:]}
     if verbose:
@@ -317,7 +346,8 @@ def run_combo(arch: str, shape_name: str, *, multi_pod: bool = False,
 def _print_result(r: dict) -> None:
     if r["status"] == "ok":
         m = r["memory"]
-        print(f"[dryrun] {r['arch']:22s} {r['shape']:12s} {r['mesh']:12s} OK "
+        print(f"[dryrun] {r['arch']:22s} {r['shape']:12s} {r['mesh']:12s} "
+              f"{'BASELINE ' if r.get('baseline') else ''}OK "
               f"flops/card={r['flops']:.4e} "
               f"bytes/card={r['bytes_accessed']:.4e} "
               f"wire/card={r['collective_wire_bytes']:.4e} "
@@ -391,7 +421,7 @@ def run_adloco_outer(arch: str, save: bool = True,
             res = op_analysis.as_dict(counter)
             result = {"arch": arch, "shape": "adloco_outer",
                       "mesh": mesh_name, "status": "ok",
-                      "torch": torch.__version__,
+                      "torch": torch.__version__, "baseline": BASELINE,
                       "flops": res["flops"], "bytes_accessed": res["bytes"],
                       "collective_bytes": res["collective_bytes"],
                       "collective_wire_bytes": res["collective_wire_bytes"],
@@ -404,7 +434,7 @@ def run_adloco_outer(arch: str, save: bool = True,
         except Exception as e:  # noqa: BLE001
             result = {"arch": arch, "shape": "adloco_outer",
                       "mesh": mesh_name, "status": "error",
-                      "torch": torch.__version__,
+                      "torch": torch.__version__, "baseline": BASELINE,
                       "op": _failing_op(e, counter),
                       "error": f"{type(e).__name__}: {str(e)[:1000]}"}
             print(f"[dryrun] {arch:22s} adloco_outer ERROR {result['op']} "

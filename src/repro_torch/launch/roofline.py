@@ -13,9 +13,12 @@ The artifact numbers are per card already (``op_analysis`` counts the
 local ops of rank 0).  The single collective term prices all traffic
 at NVLink's rate, the traffic over the data axis between nodes
 (InfiniBand) too: the JAX package's single-link simplification, kept.
-Also reported: MODEL_FLOPS = 6*N*D (train) / 2*N*D (prefill, decode)
-with N = active params, the useful-compute ratio MODEL_FLOPS / FLOPs,
-the dominant term, and a one-line note on what would move it.
+Each row also names the torch version that traced it and whether the
+combo was traced as the baseline, without activation constraints
+(``launch.dryrun``).  Also reported: MODEL_FLOPS = 6*N*D (train) /
+2*N*D (prefill, decode) with N = active params, the useful-compute
+ratio MODEL_FLOPS / FLOPs, the dominant term, and a one-line note on
+what would move it.
 
   PYTHONPATH=src python -m repro_torch.launch.roofline             # table
   PYTHONPATH=src python -m repro_torch.launch.roofline --markdown
@@ -59,6 +62,7 @@ class RooflineRow:
     useful_ratio: float
     note: str
     torch: str                  # the torch version that traced the combo
+    baseline: bool              # traced as the dry run's baseline
     raw: dict
 
     @property
@@ -140,7 +144,8 @@ def load_rows(art_dir: str = ART_DIR) -> List[RooflineRow]:
             bound_s=max(terms.values()), dominant=dominant,
             useful_ratio=mf / max(r["flops"], 1.0),
             note=_suggestion(dominant, r, r["arch"], r["shape"]),
-            torch=r.get("torch", "unknown"), raw=r))
+            torch=r.get("torch", "unknown"),
+            baseline=bool(r.get("baseline", False)), raw=r))
     return rows
 
 
@@ -160,8 +165,9 @@ def fmt_s(x: float) -> str:
 def print_table(rows: List[RooflineRow], markdown: bool = False) -> None:
     if markdown:
         print("| arch | shape | mesh | compute | memory | collective | "
-              "bound | dominant | MFLOPs/FLOPs | roofline frac | torch |")
-        print("|---|---|---|---|---|---|---|---|---|---|---|")
+              "bound | dominant | MFLOPs/FLOPs | roofline frac | torch | "
+              "baseline |")
+        print("|---|---|---|---|---|---|---|---|---|---|---|---|")
         for r in rows:
             print(f"| {r.arch} | {r.shape} | {r.mesh} | "
                   f"{fmt_s(r.compute_s).strip()} | "
@@ -169,27 +175,30 @@ def print_table(rows: List[RooflineRow], markdown: bool = False) -> None:
                   f"{fmt_s(r.collective_s).strip()} | "
                   f"{fmt_s(r.bound_s).strip()} | "
                   f"**{r.dominant}** | {r.useful_ratio:.2f} | "
-                  f"{r.roofline_fraction:.2f} | {r.torch} |")
+                  f"{r.roofline_fraction:.2f} | {r.torch} | "
+                  f"{'yes' if r.baseline else 'no'} |")
         return
     hdr = (f"{'arch':22s} {'shape':12s} {'mesh':12s} {'compute':9s} "
            f"{'memory':9s} {'collect':9s} {'dominant':10s} "
-           f"{'useful':7s} {'rooffrac':8s} torch")
+           f"{'useful':7s} {'rooffrac':8s} {'torch':14s} baseline")
     print(hdr)
     print("-" * len(hdr))
     for r in rows:
         print(f"{r.arch:22s} {r.shape:12s} {r.mesh:12s} "
               f"{fmt_s(r.compute_s)} {fmt_s(r.memory_s)} "
               f"{fmt_s(r.collective_s)} {r.dominant:10s} "
-              f"{r.useful_ratio:6.2f}  {r.roofline_fraction:6.2f}   {r.torch}")
+              f"{r.useful_ratio:6.2f}  {r.roofline_fraction:6.2f}   "
+              f"{r.torch:14s} {'yes' if r.baseline else 'no'}")
 
 
 def print_csv(rows: List[RooflineRow]) -> None:
     print("arch,shape,mesh,compute_s,memory_s,collective_s,dominant,"
-          "useful_ratio,roofline_fraction,torch")
+          "useful_ratio,roofline_fraction,torch,baseline")
     for r in rows:
         print(f"{r.arch},{r.shape},{r.mesh},{r.compute_s:.6g},"
               f"{r.memory_s:.6g},{r.collective_s:.6g},{r.dominant},"
-              f"{r.useful_ratio:.4f},{r.roofline_fraction:.4f},{r.torch}")
+              f"{r.useful_ratio:.4f},{r.roofline_fraction:.4f},{r.torch},"
+              f"{int(r.baseline)}")
 
 
 def pick_hillclimb_pairs(rows: List[RooflineRow]) -> Dict[str, RooflineRow]:

@@ -41,7 +41,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import lm
 from repro_torch.models.lm import _dtype, _embed, param_dict  # noqa: F401
-from repro_torch.sharding import constrain
+from repro_torch.sharding import constrain, pin_grad
 
 _STACKS = ("enc_layers", "dec_layers")
 
@@ -166,7 +166,7 @@ def _cross_attention(p, x, enc_kv, cfg: ModelConfig):
     k, v = enc_kv
     q = L.split_heads(x @ p["q"], cfg.num_heads, cfg.resolved_head_dim)
     out = L.policy_sdpa(q, k, v, cfg, causal=False)
-    return L.merge_heads(out) @ p["o"]
+    return L.out_project(out, p["o"])
 
 
 def encode(params: EncDecLM, frames, cfg: ModelConfig, *,
@@ -193,15 +193,19 @@ def enc_kv(p_xattn, enc_out, cfg: ModelConfig):
     Under a sharding policy each is whole on every model card: the
     projection's partial sums reduced once here, not left in the
     cross-attention einsum of every decoder step (which stalls DTensor
-    for minutes on the 2-pod mesh)."""
+    for minutes on the 2-pod mesh).  Their gradient comes back laid out
+    as the projection made them (``pin_grad``): whole on every model
+    card, it would have each card compute all of the weight's
+    gradient."""
     hd = cfg.resolved_head_dim
-    return tuple(constrain(L.split_heads(enc_out @ p_xattn[w],
-                                         cfg.num_kv_heads, hd),
+    return tuple(constrain(pin_grad(L.split_heads(enc_out @ p_xattn[w],
+                                                  cfg.num_kv_heads, hd)),
                            "batch", None, None, None) for w in ("k", "v"))
 
 
 def _head(params: EncDecLM, x, cfg: ModelConfig):
-    return L.rms_norm(x, params.final_norm, cfg.rms_eps) @ params.embed.T
+    return lm._head_product(L.rms_norm(x, params.final_norm, cfg.rms_eps),
+                            params.embed.T)
 
 
 def decode_forward(params: EncDecLM, tokens, enc_out, cfg: ModelConfig):

@@ -20,11 +20,12 @@ from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import Replicate
+from torch.distributed.tensor import Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.sharding import (constrain, full, is_sharded, on_shards,
-                                  pin_grad, policy_model_size, shard_offset,
+from repro_torch.sharding import (constrain, flattenable, full, is_sharded,
+                                  lay_out, on_shards, pin_grad,
+                                  policy_model_size, reduced, shard_offset,
                                   whole_groups, whole_groups_in_grad)
 from repro_torch.trips import repeated
 
@@ -55,9 +56,13 @@ def dense_init(gen: torch.Generator, shape, scale: Optional[float] = None,
 # --------------------------------------------------------------------
 
 def rms_norm(x, weight, eps: float = 1e-6):
-    """RMSNorm in f32 with a ``(1 + w)`` scale, cast back to x's dtype."""
+    """RMSNorm in f32 with a ``(1 + w)`` scale, cast back to x's dtype.
+    A DTensor ``x`` left a partial sum over a mesh axis is reduced first:
+    its square needs it whole anyway, and torch 2.13 would otherwise
+    hand on a normed partial sum, whose next product gathers its weight
+    (2.11 reduces it, so the two versions would count apart)."""
     dtype = x.dtype
-    x = x.float()
+    x = reduced(x).float()
     var = torch.mean(x * x, dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
     return (x * (1.0 + weight.float())).to(dtype)
@@ -120,13 +125,47 @@ def split_heads(t, heads: int, hd: int):
 
 
 def merge_heads(t):
-    """(..., heads, hd) -> (..., heads * hd), a shard that would split the
-    merged dim unevenly gathered first (as ``split_heads``)."""
+    """(..., heads, hd) -> (..., heads * hd).  A sharded (DTensor) ``t``
+    is first laid out so that a view can merge it: a split head_dim, or
+    heads split unevenly over the cards (12 over 8), gathered
+    (``sharding.flattenable``)."""
     heads = t.shape[-2]
-    t = whole_groups(t, t.dim() - 2, heads)
+    t = flattenable(t, t.dim() - 2, t.dim() - 1)
     merged = t.reshape(*t.shape[:-2], heads * t.shape[-1])
     # the reshape's backward splits the merged dim into heads again
     return whole_groups_in_grad(merged, merged.dim() - 1, heads)
+
+
+def out_project(out, w):
+    """Attention's output (..., heads, hd) merged and projected by the o
+    weight ``w`` (heads * hd, d), the merged features laid out as
+    ``w``'s rows (``rows_input``): where attention split the query rows
+    instead of the heads, merged features whole on every card would
+    have every model card compute all of ``w``'s gradient."""
+    return rows_input(merge_heads(out), w) @ w
+
+
+def rows_input(x, w):
+    """``x`` laid out for the product ``x @ w`` where ``w`` splits its
+    rows over the model axis: under a sharding policy, x's last dim is
+    split the same way and its leading dims lie as the batch, its shard
+    contiguous for the product's view (query rows split unevenly, 1,500
+    frames over 8 cards, leave one no view takes).  Left whole on every
+    model card, x would have each card compute all of w's gradient
+    (torch 2.11 does).  Otherwise ``x`` comes back as it is."""
+    if not splits_over_model(w, 0):
+        return x
+    x = constrain(x, "batch", *(None,) * (x.dim() - 2), "model")
+    return flattenable(x, 0, x.dim() - 2)
+
+
+def splits_over_model(w, dim: int) -> bool:
+    """Whether the DTensor ``w`` splits its ``dim`` over the "model" mesh
+    axis (False for a plain tensor)."""
+    if not is_sharded(w) or "model" not in w.device_mesh.mesh_dim_names:
+        return False
+    return w.placements[w.device_mesh.mesh_dim_names.index("model")] \
+        .is_shard(dim)
 
 
 def qkv_project(p, x, cfg: ModelConfig, positions):
@@ -164,8 +203,11 @@ def sdpa(q, k, v, *, causal: bool, window=None, q_offset: int = 0):
         mask &= kpos[None, :] > qpos[:, None] - window
     logits = logits.masked_fill(~mask, NEG_INF)
     probs = _softmax(logits).to(q.dtype)
-    out = torch.einsum("bkgqs,bskh->bqkgh", probs, v)
-    return whole_groups_in_grad(out.reshape(B, Sq, H, hd), 2, Hk)
+    out = flattenable(torch.einsum("bkgqs,bskh->bqkgh", probs, v), 2, 3)
+    # a DTensor output's gradient laid out as the output (``pin_grad``):
+    # left free, its partial sums are reduced or scattered as the torch
+    # version pleases, and the backward's products split otherwise
+    return whole_groups_in_grad(pin_grad(out.reshape(B, Sq, H, hd)), 2, Hk)
 
 
 def _softmax(logits):
@@ -189,7 +231,7 @@ def attention(p, x, cfg: ModelConfig, *, causal=True, window=None,
         out = flash_attention(q, k, v, causal=causal, window=window)
     else:
         out = policy_sdpa(q, k, v, cfg, causal=causal, window=window)
-    return merge_heads(out) @ p["o"]
+    return out_project(out, p["o"])
 
 
 def policy_sdpa(q, k, v, cfg: ModelConfig, *, causal: bool, window=None):
@@ -205,20 +247,21 @@ def policy_sdpa(q, k, v, cfg: ModelConfig, *, causal: bool, window=None):
         would split the head_dim contraction and reduce the scores).
 
     Either way a card's scores need nothing of the other cards, so they
-    run on its own shards (``sharding.on_shards``)."""
+    run on its own shards (``sharding.on_shards``); the output stays
+    laid out so, and ``out_project`` moves the merged heads to the o
+    weight's rows."""
     m = policy_model_size()
     if not m:
-        return sdpa(q, k, v, causal=causal, window=window)
+        return _sdpa_as_laid_out(q, k, v, causal=causal, window=window)
     H, Hk = q.shape[2], k.shape[2]
     if H % m:
         q = constrain(q, "batch", "model", None, None)
         k = constrain(k, "batch", None, None, None)
         v = constrain(v, "batch", None, None, None)
         off = shard_offset(q, 1)
-        out = on_shards(lambda q, k, v: sdpa(q, k, v, causal=causal,
-                                             window=window, q_offset=off),
-                        q, k, v)
-        return constrain(out, "batch", None, None, None)
+        return on_shards(lambda q, k, v: sdpa(q, k, v, causal=causal,
+                                              window=window, q_offset=off),
+                         q, k, v)
     if Hk % m:
         k, v = (repeat_kv(constrain(t, "batch", None, None, None), H // Hk)
                 for t in (k, v))
@@ -226,6 +269,31 @@ def policy_sdpa(q, k, v, cfg: ModelConfig, *, causal: bool, window=None):
     return on_shards(lambda q, k, v: sdpa(q, k, v, causal=causal,
                                           window=window),
                      *(constrain(t, *heads) for t in (q, k, v)))
+
+
+def _sdpa_as_laid_out(q, k, v, *, causal: bool, window=None):
+    """``sdpa`` with no placement imposed (no policy): q, k and v laid
+    out alike over a mesh with only their batch and heads split, each kv
+    head whole on its card, run on each card's own shards in the layout
+    DTensor chose, which is what its einsums would compute there.  Its
+    einsum path would reach the same products through a sharding search
+    that takes hours on the 2-pod mesh (torch 2.13) or refuses to
+    flatten the split heads (2.11).  Any other layout runs ``sdpa`` as
+    it is."""
+    if not is_sharded(q) or not all(
+            is_sharded(t) and list(t.placements) == list(q.placements)
+            for t in (k, v)):
+        return sdpa(q, k, v, causal=causal, window=window)
+    mesh, heads = q.device_mesh, 1
+    for i, p in enumerate(q.placements):
+        if p.is_partial() or (p.is_shard() and p.dim not in (0, 2)):
+            return sdpa(q, k, v, causal=causal, window=window)
+        if p.is_shard(2):
+            heads *= mesh.size(i)
+    if k.shape[2] % heads:
+        return sdpa(q, k, v, causal=causal, window=window)
+    return on_shards(lambda q, k, v: sdpa(q, k, v, causal=causal,
+                                          window=window), q, k, v)
 
 
 def repeat_kv(t, g: int):
@@ -263,7 +331,9 @@ def decode_attention(p, x, cfg: ModelConfig, k_cache, v_cache, pos, *,
     token's k/v.  ``pos``: absolute position of the new token, a 0-d
     tensor (lockstep batch) or a (B,) tensor (every request at its own
     position).  ``kv_pos_of_slot``: (C,) or (B,C) absolute position held
-    by each cache slot; None -> slot i holds position i.
+    by each cache slot; None -> slot i holds position i.  A cache laid
+    out over a mesh (a DTensor) is attended on each card's own slots
+    and the cards' results combined (``decode_on_shards``).
     """
     B = x.shape[0]
     hd = cfg.resolved_head_dim
@@ -275,21 +345,107 @@ def decode_attention(p, x, cfg: ModelConfig, k_cache, v_cache, pos, *,
     C = k_cache.shape[1]
     slot_pos = (kv_pos_of_slot if kv_pos_of_slot is not None
                 else torch.arange(C, device=x.device))
-    slot_pos = torch.atleast_2d(slot_pos).expand(B, C)
-    pos_b = pos.expand(B)[:, None]                             # (B,1)
     Hk = cfg.num_kv_heads
     qg = whole_groups(q, 2, Hk).reshape(B, Hk, cfg.num_heads // Hk, hd)
-    logits = torch.einsum("bkgh,bskh->bkgs", qg, k_cache).float()
-    logits = logits * (1.0 / math.sqrt(hd))
+    if is_sharded(k_cache):
+        out = decode_on_shards(qg, k_cache, v_cache, pos, slot_pos,
+                               cache_len_valid=cache_len_valid,
+                               window=window)
+        return out.reshape(B, 1, cfg.q_dim) @ p["o"]
+    logits = _decode_logits(qg, k_cache, pos, slot_pos, cache_len_valid,
+                            window)
+    probs = torch.softmax(logits, dim=-1).to(x.dtype)
+    out = torch.einsum("bkgs,bskh->bkgh", probs, v_cache)
+    return out.reshape(B, 1, cfg.q_dim) @ p["o"]
+
+
+def _decode_logits(qg, k, pos, slot_pos, cache_len_valid, window):
+    """f32 scores (B,Hk,g,c) of grouped queries qg (B,Hk,g,hd) against
+    the slots k (B,c,Hk,hd) whose absolute positions are ``slot_pos``
+    (c,) or (B,c), the slots the token at ``pos`` does not see at
+    NEG_INF."""
+    B, c = k.shape[:2]
+    slot_pos = torch.atleast_2d(slot_pos).expand(B, c)
+    pos_b = pos.expand(B)[:, None]                             # (B,1)
+    logits = torch.einsum("bkgh,bskh->bkgs", qg, k).float()
+    logits = logits * (1.0 / math.sqrt(qg.shape[-1]))
     mask = (slot_pos <= pos_b) & (slot_pos >= 0)
     if cache_len_valid is not None:
         mask &= slot_pos > pos_b - cache_len_valid
     if window is not None:
         mask &= slot_pos > pos_b - window
-    logits = logits.masked_fill(~mask[:, None, None, :], NEG_INF)
-    probs = torch.softmax(logits, dim=-1).to(x.dtype)
-    out = torch.einsum("bkgs,bskh->bkgh", probs, v_cache)
-    return out.reshape(B, 1, cfg.q_dim) @ p["o"]
+    return logits.masked_fill(~mask[:, None, None, :], NEG_INF)
+
+
+def decode_split(qg, k, v, pos, slot_pos, *, cache_len_valid=None,
+                 window=None):
+    """One split of flash-decoding: grouped queries qg (B,Hk,g,hd)
+    against the slots k/v (B,c,Hk,hd) of one slice of the cache, whose
+    absolute positions are ``slot_pos`` (c,) or (B,c); masking as in
+    ``decode_attention``.  Returns the slice's (max (B,Hk,g) f32, sum of
+    exps (B,Hk,g) f32, un-normalised PV product (B,Hk,g,hd) f32);
+    ``combine_splits`` joins the slices."""
+    logits = _decode_logits(qg, k, pos, slot_pos, cache_len_valid, window)
+    m = torch.amax(logits, dim=-1)
+    e = torch.exp(logits - m[..., None])
+    pv = torch.einsum("bkgs,bskh->bkgh", e.to(qg.dtype), v).float()
+    return m, torch.sum(e, dim=-1), pv
+
+
+def combine_splits(m, l, pv, dtype):
+    """Flash-decoding's combine over the last dim of the splits'
+    results (``decode_split``'s, stacked: m, l (B,Hk,g,n), pv
+    (B,Hk,g,hd,n)): each split rescaled to the overall max, summed, and
+    normalised -> (B,Hk,g,hd) in ``dtype``.  A split whose slots are all
+    masked has max NEG_INF and weighs exp(NEG_INF - max) = 0."""
+    scale = torch.exp(m - torch.amax(m, dim=-1, keepdim=True))
+    total = torch.sum(l * scale, dim=-1)
+    out = torch.sum(pv * scale[..., None, :], dim=-1)
+    return (out / total[..., None]).to(dtype)
+
+
+def decode_on_shards(qg, k_cache, v_cache, pos, slot_pos, *,
+                     cache_len_valid=None, window=None):
+    """``decode_attention`` against DTensor caches split along C: each
+    card runs ``decode_split`` on its own slots (their positions from
+    ``shard_offset``) for all heads of its rows, its results one split
+    of a splits dim laid out over the mesh dims that split C, and
+    ``combine_splits`` joins them (a max and two sums across those
+    cards).  Each card so computes its share of the scores and the PV
+    product; a sharded C inside one einsum is what torch 2.11's DTensor
+    will not flatten.  Returns (B,Hk,g,hd), rows laid out as the
+    cache's, replicated elsewhere."""
+    mesh, places = k_cache.device_mesh, list(k_cache.placements)
+    B, C = k_cache.shape[:2]
+    Hk, g, hd = qg.shape[1:]
+    splits = [i for i, q in enumerate(places) if q.is_shard(1)]
+    n = math.prod(mesh.size(i) for i in splits)
+    # every head of the card's rows, whole
+    rows = [Shard(0) if q.is_shard(0) else Replicate() for q in places]
+    qg = qg.redistribute(mesh, rows)
+    b0, c0 = shard_offset(k_cache, 0), shard_offset(k_cache, 1)
+
+    def split(k, v, qg, pos, slot_pos):
+        c = k.shape[1]
+        sp = torch.atleast_2d(slot_pos)
+        sp = sp[:, c0:c0 + c] if sp.shape[0] == 1 else \
+            sp[b0:b0 + k.shape[0], c0:c0 + c]
+        pos = pos if pos.dim() == 0 else pos[b0:b0 + k.shape[0]]
+        m, l, pv = decode_split(qg, k, v, pos, sp,
+                                cache_len_valid=cache_len_valid,
+                                window=window)
+        return m[..., None], l[..., None], pv[..., None]
+
+    def laid(last: int):
+        """Rows as the cache's, the splits dim ``last`` over C's dims."""
+        return [Shard(0) if q.is_shard(0) else
+                Shard(last) if q.is_shard(1) else Replicate() for q in places]
+
+    m, l, pv = on_shards(split, k_cache, v_cache, qg, pos, slot_pos,
+                         outs=[((B, Hk, g, n), laid(3)),
+                               ((B, Hk, g, n), laid(3)),
+                               ((B, Hk, g, hd, n), laid(4))])
+    return combine_splits(m, l, pv, qg.dtype)
 
 
 def gathered_attention(q, k_cache, v_cache, qpos, kv_pos, *, window=None):
@@ -399,21 +555,25 @@ def moe_route(p, x, cfg: ModelConfig, *,
     return MoERoute(probs, topw, topi, C, slot, kept)
 
 
-def moe_block(p, x, cfg: ModelConfig, *, capacity_factor: float = 1.25):
+def moe_block(p, x, cfg: ModelConfig, *, capacity_factor: float = 1.25,
+              decode: bool = False):
     """MoE with per-group dispatch.  x: (T, d) flattened tokens, or
     (G, Tg, d) grouped tokens (G = batch rows), where every group is
     routed independently (its own capacity) and aux is the groups'
-    mean.  Returns (y like x, aux_loss f32 scalar)."""
+    mean.  ``decode``: x holds the tokens of one decode step (the
+    layout of the expert products over a mesh; nothing changes on plain
+    tensors).  Returns (y like x, aux_loss f32 scalar)."""
     if x.dim() == 3:
         outs = [_moe_block_flat(p, xg, cfg, capacity_factor=capacity_factor)
                 for xg in x]
         return (torch.stack([y for y, _ in outs]),
                 torch.mean(torch.stack([a for _, a in outs])))
-    return _moe_block_flat(p, x, cfg, capacity_factor=capacity_factor)
+    return _moe_block_flat(p, x, cfg, capacity_factor=capacity_factor,
+                           decode=decode)
 
 
 def _moe_block_flat(p, x, cfg: ModelConfig, *,
-                    capacity_factor: float = 1.25):
+                    capacity_factor: float = 1.25, decode: bool = False):
     """x: (T, d) -> (y (T, d), aux_loss).  Sort-based capacity dispatch:
     kept assignments are scattered into an (E*C, d) buffer (unused slots
     zero), each expert's SwiGLU runs as one batched product per matrix,
@@ -437,25 +597,42 @@ def _moe_block_flat(p, x, cfg: ModelConfig, *,
         r.slot, dtype=x.dtype))[:E * C]
     # gathered straight into (E, C) and back out of it by (expert, slot)
     # indices: a sharded (E*C, d) would have to be viewed as (E, C, d)
-    xe = x[slot_token.reshape(E, C)] * slot_used.reshape(E, C, 1)
-    # under the sharding policy the capacity slots split over the data
-    # axes (each card runs its share of every expert's slots), in the
-    # products too: left free, the FSDP shards of the expert weights may
-    # decide their layout and leave every slot on every card
-    xe = constrain(xe, None, "batch", None)
-    h = F.silu(constrain(torch.bmm(xe, p["gate"]), None, "batch", "model")) \
-        * constrain(torch.bmm(xe, p["up"]), None, "batch", "model")
-    ye = constrain(torch.bmm(h, p["down"]), None, "batch", None)  # (E, C, d)
+    if decode:
+        # a decode step's few slots, on every card, the products split
+        # over the data axes along d (the contraction of gate and up,
+        # the output of down) and over "model" along the experts' width:
+        # an even split for any E and C, laid out here because no policy
+        # is open in decode and DTensor's own layout of the gather
+        # differs between torch versions
+        xe = lay_out(x, None, "batch")[slot_token.reshape(E, C)] \
+            * slot_used.reshape(E, C, 1)
+        xe = lay_out(xe, None, None, "batch")
+        h = F.silu(lay_out(torch.bmm(xe, p["gate"]), None, None, "model")) \
+            * lay_out(torch.bmm(xe, p["up"]), None, None, "model")
+        ye = torch.bmm(h, lay_out(p["down"], None, "model", "batch"))
+    else:
+        xe = x[slot_token.reshape(E, C)] * slot_used.reshape(E, C, 1)
+        # under the sharding policy the capacity slots split over the
+        # data axes (each card runs its share of every expert's slots),
+        # in the products too: left free, the FSDP shards of the expert
+        # weights may decide their layout and leave every slot on every
+        # card
+        xe = constrain(xe, None, "batch", None)
+        h = F.silu(constrain(torch.bmm(xe, p["gate"]), None, "batch",
+                             "model")) \
+            * constrain(torch.bmm(xe, p["up"]), None, "batch", "model")
+        ye = constrain(torch.bmm(h, p["down"]), None, "batch", None)
 
     w = r.topw.reshape(-1, 1).to(x.dtype) * r.kept.to(x.dtype)[:, None]
     s = torch.clamp(r.slot, max=E * C - 1)
     y = (ye[s // C, s % C] * w).reshape(T, K, d)
     y = y.sum(dim=1)
 
-    if mc.num_shared:
-        hs = F.silu(torch.einsum("td,sdf->tsf", x, p["s_gate"]))
-        hs = hs * torch.einsum("td,sdf->tsf", x, p["s_up"])
-        y = y + torch.einsum("tsf,sfd->td", hs, p["s_down"])
+    # the shared experts, one SwiGLU each: JAX's einsums over the stacked
+    # (s, d, f) weights as 2-D products, which DTensor shards as the
+    # dense MLP's (torch 2.11 cannot flatten the sharded f in the einsum)
+    for i in range(mc.num_shared):
+        y = y + swiglu(x, p["s_gate"][i], p["s_up"][i], p["s_down"][i])
 
     # load-balance aux loss (Switch-style)
     flat_e = r.topi.reshape(-1)
@@ -510,9 +687,8 @@ def causal_conv1d(x, w, b, prev=None):
     the taps run along the sequence, which no card splits."""
     chans = ("batch", None, "model")
     return on_shards(
-        _conv1d, constrain(x, *chans), constrain(w, None, "model"),
-        constrain(b, "model"),
-        None if prev is None else constrain(prev, *chans))
+        _conv1d, lay_out(x, *chans), lay_out(w, None, "model"),
+        lay_out(b, "model"), None if prev is None else lay_out(prev, *chans))
 
 
 def _conv1d(x, w, b, prev):
@@ -584,10 +760,10 @@ def _scan_on_shards(scan, u, dt, A_log, Bmat, Cmat, h0=None):
     Bsz, _, di = u.shape
     chans = ("batch", None, "model")
     return on_shards(
-        scan, constrain(u, *chans), constrain(dt, *chans),
-        constrain(A_log, "model", None), constrain(Bmat, "batch", None, None),
-        constrain(Cmat, "batch", None, None),
-        None if h0 is None else constrain(h0, "batch", "model", None),
+        scan, lay_out(u, *chans), lay_out(dt, *chans),
+        lay_out(A_log, "model", None), lay_out(Bmat, "batch", None, None),
+        lay_out(Cmat, "batch", None, None),
+        None if h0 is None else lay_out(h0, "batch", "model", None),
         outs=[(u.shape, chans),
               ((Bsz, di, A_log.shape[1]), ("batch", "model", None))])
 
@@ -693,10 +869,13 @@ def _mamba_in(p, x, cfg: ModelConfig, prev=None):
     n, dtr = cfg.ssm.state_dim, cfg.dt_rank
     x_in, z = _in_proj(x, p["in_proj"])
     x_c = F.silu(causal_conv1d(x_in, p["conv_w"], p["conv_b"], prev=prev))
-    # x_proj contracts the model-sharded channels: reduced here, so that
-    # dt_w's product splits its channels instead of gathering dt_w
-    dt_r, Bm, Cm = torch.split(constrain(x_c @ p["x_proj"], "batch", None,
-                                         None), [dtr, n, n], dim=-1)
+    # x_proj contracts the model-sharded channels: reduced here (with no
+    # policy too: torch 2.11 cannot add dt_b's shard to a partial sum),
+    # so that dt_w's product splits its channels instead of gathering
+    # dt_w
+    dt_r, Bm, Cm = torch.split(constrain(reduced(x_c @ p["x_proj"]),
+                                         "batch", None, None),
+                               [dtr, n, n], dim=-1)
     dt = F.softplus((dt_r @ p["dt_w"]).float()
                     + p["dt_b"][None, None]).to(x.dtype)
     return x_in, z, x_c, dt, Bm, Cm
@@ -748,7 +927,11 @@ def mamba_decode(p, x, cfg: ModelConfig, conv_state, ssm_state):
     window = torch.cat([conv_state, x_in[:, None]], dim=1)       # (B,cw,di)
     x_c = torch.einsum("bcd,cd->bd", window, p["conv_w"]) + p["conv_b"][None]
     x_c = F.silu(x_c)
-    dt_r, Bm, Cm = torch.split(x_c @ p["x_proj"], [dtr, n, n], dim=-1)
+    # x_proj contracts the channels: its partial sums over a sharded di
+    # reduced here, as ``_mamba_in`` does, or dt_w's product and y's
+    # would each run over every channel on every card
+    dt_r, Bm, Cm = torch.split(reduced(x_c @ p["x_proj"]), [dtr, n, n],
+                               dim=-1)
     dt = F.softplus((dt_r @ p["dt_w"]).float()
                     + p["dt_b"][None]).to(x.dtype)
     a = torch.exp(dt[..., None] * (-torch.exp(p["A_log"]))[None])  # (B,di,n)

@@ -63,7 +63,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import layers as L
 from repro_torch.sharding import (constrain, is_sharded, policy_model_size,
-                                  replicated)
+                                  replicated, splittable, splittable_in_grad)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -280,15 +280,24 @@ def _head_weight(params: DecoderLM, cfg: ModelConfig):
 
 
 def _head(params: DecoderLM, x, cfg: ModelConfig):
-    return L.rms_norm(x, params.final_norm, cfg.rms_eps) \
-        @ _head_weight(params, cfg)
+    return _head_product(L.rms_norm(x, params.final_norm, cfg.rms_eps),
+                         _head_weight(params, cfg))
 
 
-def _ffn(layer: DecoderLayer, x, cfg: ModelConfig, grouped: bool):
+def _head_product(x, head):
+    """x @ head (d, V).  Where the vocab does not divide the model axis
+    the head splits d over it instead (``sharding._fix_divisibility``),
+    and x is laid out to match (``layers.rows_input``)."""
+    return L.rows_input(x, head) @ head
+
+
+def _ffn(layer: DecoderLayer, x, cfg: ModelConfig, grouped: bool,
+         decode: bool = False):
     """The layer's MLP (SwiGLU, or the MoE block) of the normed x (B,S,d)
     -> (y (B,S,d), MoE aux or None).  ``grouped``: follow
     ``cfg.moe.dispatch`` (JAX's forward and chunked prefill); otherwise
-    every token of the call is one routing group."""
+    every token of the call is one routing group.  ``decode``: the
+    tokens of one decode step (``layers.moe_block``'s layout)."""
     # pinned to batch-over-data like the layer input: left free, DTensor
     # may keep the attention's partial sums sharded over the sequence and
     # then gather the weights and the activations both
@@ -301,14 +310,18 @@ def _ffn(layer: DecoderLayer, x, cfg: ModelConfig, grouped: bool):
     # the tokens as rows, batch-over-data both ways: the dispatch's
     # gradient would otherwise come back split in a way the view back to
     # (B, S, d) cannot unflatten
-    rows = constrain(h2.reshape(-1, h2.shape[-1]), "batch", None)
-    y, aux = L.moe_block(layer.moe, rows, cfg)
-    # tokens back to batch-over-data before they are rows again
-    return constrain(y, "batch", None).reshape(h2.shape), aux
+    rows = constrain(splittable_in_grad(h2.reshape(-1, h2.shape[-1]), 0,
+                                        h2.shape[0]), "batch", None)
+    y, aux = L.moe_block(layer.moe, rows, cfg, decode=decode)
+    # tokens back to batch-over-data before they are rows again (and,
+    # with no policy, rows whose split the batch cannot take gathered)
+    y = splittable(constrain(y, "batch", None), 0, h2.shape[0])
+    return y.reshape(h2.shape), aux
 
 
-def _mlp(layer: DecoderLayer, x, cfg: ModelConfig, grouped: bool = False):
-    return x + _ffn(layer, x, cfg, grouped)[0]
+def _mlp(layer: DecoderLayer, x, cfg: ModelConfig, grouped: bool = False,
+         decode: bool = False):
+    return x + _ffn(layer, x, cfg, grouped, decode)[0]
 
 
 def _tensor(x, device, dtype=torch.long):
@@ -367,7 +380,7 @@ def forward(params: DecoderLM, tokens, cfg: ModelConfig, *,
     """tokens (B,S) -> (logits (B, P+S, V), aux)."""
     x, aux = backbone(params, tokens, cfg, prefix_emb=prefix_emb,
                       use_kernels=use_kernels)
-    return x @ _head_weight(params, cfg), aux
+    return _head_product(x, _head_weight(params, cfg)), aux
 
 
 def gold_logits(logits, t):
@@ -382,13 +395,16 @@ def gold_logits(logits, t):
 
 
 def _vocab_split(logits):
-    """Logits pinned to their vocab over the model axis where it divides
-    the vocab (a sharding policy active), the gradient too: left free,
-    the head's weight gradient may be computed over the whole vocab on
-    every card."""
+    """Logits pinned (a sharding policy active), the gradient too: their
+    vocab over the model axis where it divides the vocab, else whole on
+    every card, the head's partial sums over its split d reduced (hymba's
+    32,001, whisper's 51,865).  Left free, the head's weight gradient may
+    be computed over the whole vocab on every card, or split as the
+    torch version pleases."""
     m = policy_model_size()
-    if m and logits.shape[-1] % m == 0:
-        return constrain(logits, "batch", None, "model")
+    if m:
+        return constrain(logits, "batch", None,
+                         "model" if logits.shape[-1] % m == 0 else None)
     return logits
 
 
@@ -404,7 +420,8 @@ def chunked_ce(x, head, tokens, P: int, chunk: int):
     tgt = tokens[:, 1:]
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     for lo in range(0, n, chunk):
-        logits = _vocab_split((hs[:, lo:lo + chunk] @ head).float())
+        logits = _vocab_split(_head_product(hs[:, lo:lo + chunk],
+                                            head).float())
         logz = torch.logsumexp(logits, dim=-1)
         t = tgt[:, lo:lo + chunk, None].long()
         gold = gold_logits(logits, t)
@@ -495,7 +512,7 @@ def prefill(params: DecoderLM, tokens, cfg: ModelConfig, cache_len: int, *,
             a = flash_ops.flash_attention(q, k, v, causal=True, window=window)
         else:
             a = L.policy_sdpa(q, k, v, cfg, causal=True, window=window)
-        a = L.merge_heads(a) @ layer.attn["o"]
+        a = L.out_project(a, layer.attn["o"])
         cache.setdefault("k", []).append(_ring_scatter(k, S_total, cache_len))
         cache.setdefault("v", []).append(_ring_scatter(v, S_total, cache_len))
         if cfg.hybrid:
@@ -587,7 +604,7 @@ def _decode_layer(layer: DecoderLayer, x, cfg: ModelConfig, is_global: bool,
     if cfg.hybrid:
         a = 0.5 * (a + _mamba_decode_into(layer, h, cfg, cs["conv"],
                                           cs["ssm"], active))
-    return _mlp(layer, x + a, cfg)
+    return _mlp(layer, x + a, cfg, decode=True)
 
 
 def write_slot(cache, rows, slot_b, new):

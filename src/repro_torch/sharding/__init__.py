@@ -33,8 +33,8 @@ import re
 from typing import Dict, Optional, Tuple
 
 import torch
-from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
-                                      distribute_tensor)
+from torch.distributed.tensor import (DTensor, Partial, Placement, Replicate,
+                                      Shard, distribute_tensor)
 from torch.distributed.tensor._utils import \
     compute_local_shape_and_global_offset
 
@@ -241,6 +241,16 @@ def replicated(x):
     return x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim)
 
 
+def reduced(x):
+    """A DTensor ``x`` with its partial sums reduced (each ``Partial``
+    placement made ``Replicate``); anything else as it is."""
+    if not isinstance(x, DTensor) or not any(p.is_partial()
+                                             for p in x.placements):
+        return x
+    return x.redistribute(x.device_mesh, [Replicate() if p.is_partial()
+                                          else p for p in x.placements])
+
+
 def whole_groups(x, dim: int, groups: int):
     """``x`` before its ``dim`` is split into ``groups`` (heads): a
     DTensor whose shard of ``dim`` is not a whole number of groups (4 kv
@@ -256,16 +266,43 @@ def whole_groups(x, dim: int, groups: int):
     return x.redistribute(x.device_mesh, places)
 
 
+def flattenable(x, first: int, last: int):
+    """``x`` ready to have its dims ``first`` .. ``last`` flattened into
+    one (the heads of attention merged): a DTensor is first replicated
+    along the mesh dims that shard one of the later dims, or the first
+    unevenly, and its shard made contiguous, since no view flattens
+    those and torch 2.11 views the shard as it finds it.  Anything else
+    comes back as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    mesh, n = x.device_mesh, 1
+    for i, p in enumerate(x.placements):
+        if p.is_shard(first):
+            n *= mesh.size(i)
+    places = [Replicate() if p.is_shard() and (
+        first < p.dim <= last or (p.dim == first and x.shape[first] % n))
+        else p for p in x.placements]
+    if places != list(x.placements):
+        x = x.redistribute(mesh, places)
+    if not x._local_tensor.is_contiguous():
+        # a DTensor is contiguous by its global strides, whatever its
+        # shard is: ``contiguous()`` would leave the shard as it is
+        x = x.clone(memory_format=torch.contiguous_format)
+    return x
+
+
 def on_shards(fn, *xs, outs=None):
     """``fn`` run on each card's own shards of the DTensors ``xs``; its
     result, of ``xs[0]``'s shape, a DTensor laid out as ``xs[0]``: for
     work that needs nothing of the other cards' shards, such as
     attention within a card's own heads.  ``outs``: for an ``fn`` that
-    returns a tuple, one (global shape, dims named as for ``constrain``)
-    per result.  Gradients flow back to the shards; an input replicated
-    along a mesh dim that the result is split along gets a partial sum
-    there (each card's share of its gradient).  Plain tensors go to
-    ``fn`` as they are."""
+    returns a tuple, one (global shape, layout) per result, the layout
+    one placement per mesh dim or dims named as for ``constrain``
+    ("batch" over the mesh's data axes, "model" over its model axis,
+    whether a policy is active or not).  Gradients flow back to the
+    shards; an input replicated along a mesh dim that the result is
+    split along gets a partial sum there (each card's share of its
+    gradient).  Plain tensors go to ``fn`` as they are."""
     x0 = xs[0]
     if not isinstance(x0, DTensor):
         return fn(*xs)
@@ -273,8 +310,7 @@ def on_shards(fn, *xs, outs=None):
     if outs is None:
         layouts = [(x0.shape, x0.placements)]
     else:
-        layouts = [(shape, placements(_policy_spec(dims), mesh))
-                   for shape, dims in outs]
+        layouts = [(shape, _layout(dims, mesh)) for shape, dims in outs]
     split = {i for _, places in layouts for i, q in enumerate(places)
              if q.is_shard()}
 
@@ -291,6 +327,18 @@ def on_shards(fn, *xs, outs=None):
     res = tuple(_from_shards(o, mesh, places, shape)
                 for o, (shape, places) in zip(out, layouts))
     return res[0] if outs is None else res
+
+
+def _layout(dims, mesh) -> list:
+    """``on_shards``' result layout: placements as they are, or named
+    dims resolved on ``mesh`` itself."""
+    if dims and all(isinstance(d, Placement) for d in dims):
+        return list(dims)
+    names = mesh.mesh_dim_names
+    return placements(tuple(
+        data_axes(mesh) or None if d == "batch" else
+        ("model" if d == "model" and "model" in names else None)
+        for d in dims), mesh)
 
 
 def _from_shards(local, mesh, places, shape):
@@ -322,28 +370,41 @@ def shard_offset(x, dim: int) -> int:
     return off
 
 
-class _WholeGroupsGrad(torch.autograd.Function):
-    """Identity whose backward passes the gradient through
-    ``whole_groups``."""
+class _InGrad(torch.autograd.Function):
+    """Identity whose backward passes the gradient through ``fn``."""
 
     @staticmethod
-    def forward(ctx, x, dim, groups):
-        ctx.dim, ctx.groups = dim, groups
+    def forward(ctx, x, fn):
+        ctx.fn = fn
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, grad):
-        return whole_groups(grad, ctx.dim, ctx.groups), None, None
+        return ctx.fn(grad), None
+
+
+def _in_grad(x, fn):
+    """``x``, its gradient passed through ``fn`` before it reaches the op
+    that made ``x``.  A plain tensor, or one that needs no gradient,
+    comes back as it is."""
+    if not isinstance(x, DTensor) or not x.requires_grad:
+        return x
+    return _InGrad.apply(x, fn)
 
 
 def whole_groups_in_grad(x, dim: int, groups: int):
     """``x``, with its gradient made ``whole_groups`` before it reaches
     the view that made ``x`` by merging groups into ``dim`` (that view's
-    backward splits ``dim`` again).  A plain tensor, or one that needs
-    no gradient, comes back as it is."""
-    if not isinstance(x, DTensor) or not x.requires_grad:
-        return x
-    return _WholeGroupsGrad.apply(x, dim, groups)
+    backward splits ``dim`` again)."""
+    return _in_grad(x, lambda g: whole_groups(g, dim, groups))
+
+
+def splittable_in_grad(x, dim: int, first: int):
+    """``x``, with its gradient made ``splittable`` before it reaches the
+    view that made ``x`` by flattening (``first``, rest) into ``dim``
+    (rows back to sequences: left free, DTensor may split the rows'
+    gradient over more cards than ``first`` has)."""
+    return _in_grad(x, lambda g: splittable(g, dim, first))
 
 
 # ------------------------------------------------------------------
@@ -438,3 +499,36 @@ def constrain(x, *dims):
         return x
     return _Constrain.apply(x, tuple(placements(_policy_spec(dims),
                                                 x.device_mesh)))
+
+
+def lay_out(x, *dims):
+    """``constrain`` whether a policy is active or not, "batch" and
+    "model" resolved on ``x``'s own mesh: for a layout that must hold in
+    every mode, the one an op needs in order to run at all
+    (``on_shards`` work that reads each card's own channels) or the
+    one a decode step, which no policy covers, needs to count alike on
+    torch 2.11 and 2.13.  A plain tensor is returned as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    return _Constrain.apply(x, tuple(_layout(dims, x.device_mesh)))
+
+
+def splittable(x, dim: int, first: int):
+    """``x`` ready to have its ``dim`` split into (``first``, rest), as a
+    view back from flattened rows: a DTensor is replicated along the
+    mesh dims that split ``dim`` beyond what ``first`` divides (rows
+    over the data and model axes, 32 sequences over the data axis
+    alone), and its shard made contiguous (``flattenable``).  Anything
+    else comes back as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    mesh, n, places = x.device_mesh, 1, []
+    for i, p in enumerate(x.placements):
+        if p.is_shard(dim):
+            n *= mesh.size(i)
+            if first % n:
+                p = Replicate()
+        places.append(p)
+    if places != list(x.placements):
+        x = x.redistribute(mesh, places)
+    return flattenable(x, dim, dim)

@@ -1,0 +1,284 @@
+"""Per-card counts on a model axis that the heads do not divide, held
+against the JAX package's, and the decode attention that splits a
+sharded cache over the cards.
+
+The ratio of a program is its per-card FLOPs on a fake mesh times the
+card count, over the same package's count on one card: 1.0 is an even
+split.  Reduced configs (2 layers, d 256) with the head counts below
+(hd 64), B = 8, S = 64, on a fake (2, 4) ("data", "model") mesh (one
+case on (2, 2)).  JAX's side runs ``repro.launch.dryrun``'s
+``lower_train`` / ``lower_decode`` / ``lower_prefill`` and
+``hlo_analysis`` in one subprocess, since that module sets a 512-device
+``XLA_FLAGS`` at import; its meshes take ``Auto`` axes (jax 0.9.0's
+default ``Explicit`` axes make ``with_sharding_constraint`` raise).  The
+subprocess starts with the first test and the port's counts run while
+it works.
+
+The port's train and decode ratios are at most JAX's in every case.
+JAX's own ratios are 1.000 except whisper-small 6 / 6 (train 1.055,
+prefill 1.017) and deepseek-moe-16b 4 / 4 (train 1.176, the MoE rule
+order of ROADMAP section 3 item 9).  Under the baseline (no activation
+constraints) GSPMD lays JAX's train steps out as its policy does, so
+JAX's baseline ratios equal its policy ratios; the port's baseline
+counts at least its policy count (DTensor's propagation is not GSPMD's).
+
+Nothing here imports ``repro.launch.dryrun``.  Every test leaves no
+process group behind.
+"""
+import dataclasses
+import json
+import math
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+
+from repro_torch.configs import get_config, reduced
+from repro_torch.configs.base import InputShape
+from repro_torch.launch import dryrun, op_analysis
+from repro_torch.models import layers as L
+from test_torch_lm import one_torch_thread  # noqa: F401  (autouse)
+
+ROOT = Path(__file__).resolve().parents[1]
+
+# (arch, heads, kv heads, program, mesh): the eight reduced cases of
+# ROADMAP section 3 item 11, and deepseek-moe-16b
+CASES = [("microllama-300m", 5, 1, "train", (2, 4)),
+         ("hymba-1.5b", 5, 1, "train", (2, 4)),
+         ("whisper-small", 6, 6, "train", (2, 4)),
+         ("whisper-small", 4, 4, "train", (2, 2)),
+         ("microllama-300m", 5, 1, "decode", (2, 4)),
+         ("hymba-1.5b", 5, 1, "decode", (2, 4)),
+         ("microllama-300m", 5, 1, "prefill", (2, 4)),
+         ("whisper-small", 6, 6, "prefill", (2, 4)),
+         ("deepseek-moe-16b", 4, 4, "train", (2, 4))]
+BASELINE_CASES = [CASES[0], CASES[-1]]
+
+JAX_SCRIPT = r"""
+import dataclasses, json, sys
+from repro.launch import dryrun as D          # 512 host devices
+import jax
+from jax.sharding import AxisType
+from repro.configs import get_config, reduced
+from repro.configs.base import InputShape
+from repro.launch import hlo_analysis
+
+LOWER = {"train": D.lower_train, "prefill": D.lower_prefill,
+         "decode": D.lower_decode}
+
+
+def flops(cfg, kind, shape):
+    n = shape[0] * shape[1]
+    mesh = jax.make_mesh(tuple(shape), ("data", "model"),
+                         devices=jax.devices()[:n],
+                         axis_types=(AxisType.Auto,) * 2)
+    low = LOWER[kind](cfg, InputShape("x", 64, 8, kind), mesh)
+    return hlo_analysis.analyze(low.compile().as_text())["flops"]
+
+
+out = {}
+cases, baseline = json.loads(sys.argv[1]), json.loads(sys.argv[2])
+for arch, h, hk, kind, shape in cases:
+    cfg = dataclasses.replace(reduced(get_config(arch)), num_heads=h,
+                              num_kv_heads=hk, head_dim=64)
+    one = flops(cfg, kind, (1, 1))
+    key = f"{arch}/{h}/{hk}/{kind}/{shape[0]}x{shape[1]}"
+    out[key] = flops(cfg, kind, shape) * shape[0] * shape[1] / one
+    if [arch, h, hk, kind, shape] in baseline:
+        # constraints change no count on one card: the policy's serves
+        D.BASELINE = True
+        out[key + "/baseline"] = (flops(cfg, kind, shape)
+                                  * shape[0] * shape[1] / one)
+        D.BASELINE = False
+print(json.dumps(out))
+"""
+
+
+def key(arch, h, hk, kind, shape):
+    return f"{arch}/{h}/{hk}/{kind}/{shape[0]}x{shape[1]}"
+
+
+def case_id(case):
+    arch, h, hk, kind, shape = case
+    return f"{arch}-{h}-{hk}-{kind}-{shape[0]}x{shape[1]}"
+
+
+class JaxRatios:
+    """JAX's ratios from one subprocess, started on first use and read
+    when a test first needs them."""
+
+    def __init__(self):
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                   JAX_PLATFORMS="cpu")
+        as_lists = [[a, h, hk, k, list(s)] for a, h, hk, k, s in CASES]
+        base = [[a, h, hk, k, list(s)] for a, h, hk, k, s in BASELINE_CASES]
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", JAX_SCRIPT, json.dumps(as_lists),
+             json.dumps(base)], cwd=ROOT, env=env, text=True,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        self.ratios = None
+
+    def __getitem__(self, k):
+        if self.ratios is None:
+            out, err = self.proc.communicate(timeout=600)
+            assert self.proc.returncode == 0, err[-3000:]
+            self.ratios = json.loads(out.strip().splitlines()[-1])
+        return self.ratios[k]
+
+
+@pytest.fixture(scope="module")
+def jax_ratios():
+    ratios = JaxRatios()
+    yield ratios
+    if ratios.proc.poll() is None:
+        ratios.proc.kill()
+        ratios.proc.communicate()
+
+
+@pytest.fixture(autouse=True)
+def no_process_group_left():
+    yield
+    assert not dist.is_initialized()
+
+
+def cfg_of(arch, h, hk):
+    return dataclasses.replace(reduced(get_config(arch)), num_heads=h,
+                               num_kv_heads=hk, head_dim=64)
+
+
+def count(cfg, kind, shape, monkeypatch=None, baseline=False):
+    """The port's per-card OpCounter of ``kind``'s dry-run program."""
+    if monkeypatch is not None:
+        monkeypatch.setattr(dryrun, "BASELINE", baseline)
+    with dryrun.fake_world(shape[0] * shape[1]):
+        mesh = init_device_mesh("cuda", shape,
+                                mesh_dim_names=("data", "model"))
+        step, args, policy = dryrun.build_program(
+            cfg, InputShape("x", 64, 8, kind), mesh)
+        counter = op_analysis.OpCounter()
+        dryrun.trace(counter, step, args, policy)
+    return counter
+
+
+def port_ratio(arch, h, hk, kind, shape, monkeypatch=None, baseline=False):
+    cfg = cfg_of(arch, h, hk)
+    one = count(cfg, kind, (1, 1)).cost.flops
+    many = count(cfg, kind, shape, monkeypatch, baseline).cost.flops
+    return many * math.prod(shape) / one
+
+
+@pytest.mark.parametrize("case", CASES, ids=case_id)
+def test_per_card_ratio_at_most_jax(case, jax_ratios):
+    port = port_ratio(*case)
+    jax = jax_ratios[key(*case)]
+    assert port <= jax + 1e-9, (case, port, jax)
+    if case[3] in ("train", "decode") and case[0] != "deepseek-moe-16b":
+        assert port == 1.0           # the even split itself
+
+
+@pytest.mark.parametrize("case", BASELINE_CASES, ids=case_id)
+def test_baseline_ratios(case, jax_ratios, monkeypatch):
+    """GSPMD lays JAX's baseline out as its policy; the port's baseline,
+    without its constraints, counts at least its policy's count."""
+    assert jax_ratios[key(*case) + "/baseline"] == jax_ratios[key(*case)]
+    policy = port_ratio(*case)
+    base = port_ratio(*case, monkeypatch=monkeypatch, baseline=True)
+    assert base >= policy
+
+
+def bmm_flops(counter) -> float:
+    return sum(r["flops"] for r in counter.breakdown(len(counter.rows))
+               if r["op"].startswith("aten.bmm"))
+
+
+def test_decode_attention_splits_a_sharded_cache_over_the_cards():
+    """Reduced MicroLlama decode on a fake (1, 4) mesh, the cache's C
+    over "model": each card attends its quarter of the slots for every
+    head, so it counts exactly a quarter of the one-card attention
+    products (``bmm``; every projection is an ``mm``)."""
+    cfg = reduced(get_config("microllama-300m"))
+    one = count(cfg, "decode", (1, 1))
+    many = count(cfg, "decode", (1, 4))
+    assert bmm_flops(one) > 0
+    assert bmm_flops(many) == bmm_flops(one) / 4
+
+
+def decode_attention_before(p, x, cfg, k_cache, v_cache, pos, *,
+                            cache_len_valid=None, window=None,
+                            kv_pos_of_slot=None):
+    """``layers.decode_attention`` as it was before the sharded path was
+    added: the one-card path must stay bitwise this."""
+    B = x.shape[0]
+    hd = cfg.resolved_head_dim
+    q = L.split_heads(x @ p["q"], cfg.num_heads, hd)
+    cos, sin = L.rope_cos_sin(L._rope_pos_for_decode(pos), hd,
+                              cfg.rope_theta)
+    q = L.apply_rope(q, cos, sin)
+    C = k_cache.shape[1]
+    slot_pos = (kv_pos_of_slot if kv_pos_of_slot is not None
+                else torch.arange(C))
+    slot_pos = torch.atleast_2d(slot_pos).expand(B, C)
+    pos_b = pos.expand(B)[:, None]
+    Hk = cfg.num_kv_heads
+    qg = q.reshape(B, Hk, cfg.num_heads // Hk, hd)
+    logits = torch.einsum("bkgh,bskh->bkgs", qg, k_cache).float()
+    logits = logits * (1.0 / math.sqrt(hd))
+    mask = (slot_pos <= pos_b) & (slot_pos >= 0)
+    if cache_len_valid is not None:
+        mask &= slot_pos > pos_b - cache_len_valid
+    if window is not None:
+        mask &= slot_pos > pos_b - window
+    logits = logits.masked_fill(~mask[:, None, None, :], L.NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(x.dtype)
+    out = torch.einsum("bkgs,bskh->bkgh", probs, v_cache)
+    return out.reshape(B, 1, cfg.q_dim) @ p["o"]
+
+
+def decode_inputs(seed, B=3, C=40, dtype=torch.float32):
+    cfg = reduced(get_config("microllama-300m"))
+    rng = np.random.default_rng(seed)
+
+    def t(*shape):
+        return torch.tensor(rng.standard_normal(shape), dtype=dtype)
+
+    d, hd, Hk = cfg.d_model, cfg.resolved_head_dim, cfg.num_kv_heads
+    p = {"q": t(d, cfg.q_dim) / math.sqrt(d),
+         "o": t(cfg.q_dim, d) / math.sqrt(cfg.q_dim)}
+    return cfg, p, t(B, 1, d), t(B, C, Hk, hd), t(B, C, Hk, hd)
+
+
+@pytest.mark.parametrize("window", [None, 8])
+@pytest.mark.parametrize("pos", [25, 39, 70])
+def test_split_combine_equals_one_card_decode(pos, window):
+    """Flash-decoding on plain f32 tensors: the cache cut into 4 slices
+    of C (the last one shorter and, at pos 25, all masked), each slice's
+    ``decode_split`` stacked and joined by ``combine_splits``, equals the
+    one-card ``decode_attention`` to 1e-6; the one-card path equals its
+    form before the sharded path bitwise.  At pos 70 the 40-slot cache
+    is a ring (slot i holds the newest position congruent to i)."""
+    cfg, p, x, k, v = decode_inputs(pos)
+    C = k.shape[1]
+    posv = torch.tensor(pos)
+    kv_pos = posv - (posv - torch.arange(C)) % C
+    one = L.decode_attention(p, x, cfg, k, v, posv, window=window,
+                             kv_pos_of_slot=kv_pos)
+    assert torch.equal(one, decode_attention_before(
+        p, x, cfg, k, v, posv, window=window, kv_pos_of_slot=kv_pos))
+    B, hd, Hk = x.shape[0], cfg.resolved_head_dim, cfg.num_kv_heads
+    q = L.split_heads(x @ p["q"], cfg.num_heads, hd)
+    cos, sin = L.rope_cos_sin(L._rope_pos_for_decode(posv), hd,
+                              cfg.rope_theta)
+    qg = L.apply_rope(q, cos, sin).reshape(B, Hk, -1, hd)
+    parts = [L.decode_split(qg, k[:, lo:lo + 11], v[:, lo:lo + 11], posv,
+                            kv_pos[lo:lo + 11], window=window)
+             for lo in range(0, C, 11)]
+    m, l, pv = (torch.stack(t, dim=-1) for t in zip(*parts))
+    out = L.combine_splits(m, l, pv, x.dtype)
+    split = out.reshape(B, 1, cfg.q_dim) @ p["o"]
+    torch.testing.assert_close(split, one, rtol=0, atol=1e-6)
