@@ -140,8 +140,9 @@ any failure raises and exits non-zero:
      scan or a sharded cache, and one combo of each kind torch 2.11 once
      refused (qwen3-0.6b decode_32k, deepseek-moe-16b prefill_32k,
      whisper-small train_4k, hymba-1.5b long_500k) on the h100_32x8
-     mesh, and four combos again as the baseline (``REPRO_BASELINE=1``,
-     no activation constraints, full prefill logits), each in a fresh
+     mesh, and six combos again as the baseline (``REPRO_BASELINE=1``,
+     no activation constraints, full prefill logits; the two MoE train
+     steps among them), each in a fresh
      interpreter (eight at a time): one line per combo (status
      and torch version; per-card FLOPs, bytes, wire and temp bytes, or
      the op an error names), each baseline count beside the policy's,
@@ -2256,10 +2257,14 @@ DRYRUN_COMBOS = [("microllama-300m", s) for s in
        ("qwen3-0.6b", "train_4k")] + PREFILL_COMBOS + REFUSED_COMBOS
 # the baseline's dry runs (REPRO_BASELINE=1, written to their own
 # directory), each printed beside the policy's count of the same combo
+# where phase 12 traces it; the two MoE train steps run the dispatch
+# that torch 2.11 once refused without its constraints
 BASELINE_COMBOS = [("microllama-300m", "train_4k"),
                    ("microllama-300m", "prefill_32k"),
                    ("falcon-mamba-7b", "prefill_32k"),
-                   ("whisper-small", "prefill_32k")]
+                   ("whisper-small", "prefill_32k"),
+                   ("grok-1-314b", "train_4k"),
+                   ("deepseek-moe-16b", "train_4k")]
 # per-card train_4k FLOPs that the CPU dry run counts on torch 2.13
 # (`python -m repro_torch.launch.dryrun --all`, PERF.md section 5); the
 # card's torch must count the same: with the gradients constrained like
@@ -2277,12 +2282,17 @@ FLOPS_TORCH_2_13 = {
     ("qwen3-0.6b", "decode_32k"): 4354080768.0,
     ("deepseek-moe-16b", "prefill_32k"): 53725798334464.0,
     ("whisper-small", "train_4k"): 7090378113024.0,
-    ("hymba-1.5b", "long_500k"): 403456400.0}
+    ("hymba-1.5b", "long_500k"): 32051600.0}
+# the baseline's train steps count the policy's FLOPs, its prefills the
+# policy's plus the head over every position (whisper-small's prefill
+# has no more logits than the policy's)
 BASELINE_FLOPS_TORCH_2_13 = {
-    ("microllama-300m", "train_4k"): 31883493113856.0,
-    ("microllama-300m", "prefill_32k"): 55003498676224.0,
+    ("microllama-300m", "train_4k"): 9154526183424.0,
+    ("microllama-300m", "prefill_32k"): 8824010309632.0,
     ("falcon-mamba-7b", "prefill_32k"): 57363583205376.0,
-    ("whisper-small", "prefill_32k"): 120343933632.0}
+    ("whisper-small", "prefill_32k"): 47795581632.0,
+    ("grok-1-314b", "train_4k"): 2612692493795328.0,
+    ("deepseek-moe-16b", "train_4k"): 85515835539456.0}
 
 
 def dryrun_combo(arch: str, shape: str, out: Path,
@@ -2438,9 +2448,10 @@ def phase_analysis() -> dict:
         emit("analysis_baseline", arch=r["arch"], shape=r["shape"],
              status=r["status"], torch=r["torch"],
              baseline=r.get("baseline"), flops=r.get("flops"),
-             flops_torch_2_13=ref, policy_flops=policy[key]["flops"],
+             flops_torch_2_13=ref,
+             policy_flops=policy.get(key, {}).get("flops"),
              bytes=r.get("bytes_accessed"),
-             policy_bytes=policy[key]["bytes_accessed"],
+             policy_bytes=policy.get(key, {}).get("bytes_accessed"),
              wire_bytes=r.get("collective_wire_bytes"),
              op=r.get("op"))
         if r["status"] != "ok" or r.get("baseline") is not True:

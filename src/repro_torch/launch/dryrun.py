@@ -39,21 +39,27 @@ does), so its train-step temp bytes run above the JAX package's.
 
 ``REPRO_BASELINE=1`` (read into ``BASELINE`` at import, as the JAX
 package does) traces the baseline: the port's programs without their
-activation constraints (``sharding.constrain`` and ``policy_sdpa``'s
-placement off) and with full-sequence prefill logits; decode is the same
-program in both modes, since both packages lower it without the policy.
-Every artifact records ``baseline``; ``--out`` keeps the two sweeps
-apart (the file names are the JAX package's).  What the baseline lays
-out, DTensor's sharding propagation decides, and that is not GSPMD's:
-on a reduced train step over a fake (2, 4) mesh the port's baseline
-counts 1.72x (MicroLlama, 5 / 1 heads) and 1.43x (deepseek-moe-16b) the
-even split per card, where JAX's baseline counts 1.000x and 1.176x, as
-its policy does.  So the baseline is held to JAX's count on one card
-only.  The layouts DTensor needs to trace at all (the scans' and the
-conv's ``on_shards``, the decode attention's splits, a head merge or a
-row split that no view takes) do not depend on the policy, nor do the
-rules that make torch 2.11 and 2.13 count alike: a partial sum reduced
-before a norm, attention's gradient laid out as its output.
+activation constraints (``sharding.constrain``, within ``sharding.pin``
+too, does nothing) and with full-sequence prefill logits; decode is the
+same program in both modes, since both packages lower it without the
+policy.  Every artifact records ``baseline``; ``--out`` keeps the two
+sweeps apart (the file names are the JAX package's).  With no
+constraint GSPMD still lays JAX's baseline out as its policy, so JAX's
+baseline counts its policy's FLOPs; DTensor's propagation alone would
+replicate work on every model card (1.72x the even split on a reduced
+MicroLlama train step over a fake (2, 4) mesh).  So the port pins the
+layouts GSPMD reaches with ``sharding.pin``, which holds in every mode
+(``lay_out``) and constrains under the policy: the residual stream
+(``lm.backbone``, ``encdec``), attention's heads or query rows
+(``layers.policy_sdpa``), a row-parallel product's input
+(``layers.rows_input``), the train step's logits, Mamba's x_proj output
+and the MoE capacity slots.  Its train steps count the policy's
+FLOPs, its prefills the policy's plus every position's logits.  The
+same pins are what make torch 2.11 and 2.13 count alike, as do the
+layouts DTensor needs to trace at all (the scans' and the conv's
+``on_shards``, the decode attention's splits, a head merge or a row
+split that no view takes), a partial sum reduced before a norm and
+attention's gradient laid out as its output.
 
 ``--profile`` prints the top cost centres of one combo (the counterpart
 of ``repro/launch/profile.py``; the port's ``launch.profile`` is the
@@ -91,9 +97,9 @@ OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
 
 # REPRO_BASELINE=1 traces the paper-faithful baseline configuration, as
 # the JAX package's switch lowers it: no activation-sharding constraints
-# (``_policy`` opens none, so ``sharding.constrain`` and
-# ``layers.policy_sdpa``'s placement are off) and full-sequence prefill
-# logits.  Read here only; the models know nothing of it.
+# (``_policy`` opens none, so ``sharding.constrain`` does nothing) and
+# full-sequence prefill logits.  Read here only; the models know
+# nothing of it.
 BASELINE = os.environ.get("REPRO_BASELINE", "") == "1"
 
 

@@ -41,7 +41,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import lm
 from repro_torch.models.lm import _dtype, _embed, param_dict  # noqa: F401
-from repro_torch.sharding import constrain, pin_grad
+from repro_torch.sharding import constrain, pin, pin_grad
 
 _STACKS = ("enc_layers", "dec_layers")
 
@@ -177,14 +177,14 @@ def encode(params: EncDecLM, frames, cfg: ModelConfig, *,
     positions = torch.arange(x.shape[1], device=x.device)
     for layer in params.enc_layers:
         # pinned as the decoder's layers pin theirs (``lm.backbone``)
-        x = constrain(x, "batch", None, None)
+        x = pin(x, "batch", None, None)
         h = L.rms_norm(x, layer.attn_norm, cfg.rms_eps)
-        x = constrain(x + L.attention(layer.attn, h, cfg, causal=False,
-                                      positions=positions,
-                                      use_kernel=use_kernels),
-                      "batch", None, None)
+        x = pin(x + L.attention(layer.attn, h, cfg, causal=False,
+                                positions=positions,
+                                use_kernel=use_kernels),
+                "batch", None, None)
         x = _mlp(layer, x, cfg)
-    x = constrain(x, "batch", None, None)
+    x = pin(x, "batch", None, None)
     return L.rms_norm(x, params.enc_norm, cfg.rms_eps)
 
 
@@ -215,17 +215,17 @@ def decode_forward(params: EncDecLM, tokens, enc_out, cfg: ModelConfig):
     positions = torch.arange(x.shape[1], device=x.device)
     for layer in params.dec_layers:
         # pinned as the encoder's layers are
-        x = constrain(x, "batch", None, None)
+        x = pin(x, "batch", None, None)
         h = L.rms_norm(x, layer.attn_norm, cfg.rms_eps)
-        x = constrain(x + L.attention(layer.attn, h, cfg, causal=True,
-                                      positions=positions),
-                      "batch", None, None)
+        x = pin(x + L.attention(layer.attn, h, cfg, causal=True,
+                                positions=positions),
+                "batch", None, None)
         h = L.rms_norm(x, layer.xattn_norm, cfg.rms_eps)
-        x = constrain(x + _cross_attention(
+        x = pin(x + _cross_attention(
             layer.xattn, h, enc_kv(layer.xattn, enc_out, cfg), cfg),
             "batch", None, None)
         x = _mlp(layer, x, cfg)
-    return _head(params, constrain(x, "batch", None, None), cfg)
+    return _head(params, pin(x, "batch", None, None), cfg)
 
 
 def loss_fn(params: EncDecLM, batch, cfg: ModelConfig):

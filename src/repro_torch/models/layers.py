@@ -15,6 +15,8 @@ layer takes masked full attention, which computes the same function.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 from typing import NamedTuple, Optional
 
@@ -23,10 +25,11 @@ import torch.nn.functional as F
 from torch.distributed.tensor import Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.sharding import (constrain, flattenable, full, is_sharded,
-                                  lay_out, on_shards, pin_grad,
-                                  policy_model_size, reduced, shard_offset,
-                                  whole_groups, whole_groups_in_grad)
+from repro_torch.sharding import (constrain, data_axes, flattenable, full,
+                                  is_sharded, lay_out, on_shards, pin,
+                                  pin_grad, reduced, replicated,
+                                  shard_offset, whole_groups,
+                                  whole_groups_in_grad)
 from repro_torch.trips import repeated
 
 # A window value meaning "attend to everything" for global layers.
@@ -89,7 +92,8 @@ def apply_rope(x, cos, sin):
 
 
 def swiglu(x, gate_w, up_w, down_w):
-    return (F.silu(x @ gate_w) * (x @ up_w)) @ down_w
+    return decode_product(F.silu(decode_product(x, gate_w))
+                          * decode_product(x, up_w), down_w)
 
 
 def gelu_mlp(x, up_w, up_b, down_w, down_b):
@@ -147,15 +151,19 @@ def out_project(out, w):
 
 def rows_input(x, w):
     """``x`` laid out for the product ``x @ w`` where ``w`` splits its
-    rows over the model axis: under a sharding policy, x's last dim is
-    split the same way and its leading dims lie as the batch, its shard
-    contiguous for the product's view (query rows split unevenly, 1,500
-    frames over 8 cards, leave one no view takes).  Left whole on every
-    model card, x would have each card compute all of w's gradient
-    (torch 2.11 does).  Otherwise ``x`` comes back as it is."""
+    rows over the model axis: x's last dim split the same way and its
+    leading dims lying as the batch, its shard contiguous for the
+    product's view (query rows split unevenly, 1,500 frames over 8
+    cards, leave one no view takes).  Left whole on every model card,
+    x would have each card compute all of w's gradient (torch 2.11
+    does, and so does DTensor's propagation with no policy).  Otherwise
+    ``x`` comes back as it is."""
     if not splits_over_model(w, 0):
         return x
-    x = constrain(x, "batch", *(None,) * (x.dim() - 2), "model")
+    rows = None if rows_whole_over_data(x) else "batch"
+    # GSPMD lays a row-parallel product's input out as the weight's rows
+    # with no constraint too, and its gradient so
+    x = pin(x, rows, *(None,) * (x.dim() - 2), "model")
     return flattenable(x, 0, x.dim() - 2)
 
 
@@ -166,6 +174,72 @@ def splits_over_model(w, dim: int) -> bool:
         return False
     return w.placements[w.device_mesh.mesh_dim_names.index("model")] \
         .is_shard(dim)
+
+
+def rows_whole_over_data(x) -> bool:
+    """Whether the DTensor ``x``'s rows (dim 0) lie whole on every card
+    of its mesh's data axes, and those hold more than one card: a decode
+    step with fewer rows than the data cards (``long_500k``'s B = 1,
+    which the decode plan leaves replicated).  False for a plain
+    tensor."""
+    if not is_sharded(x):
+        return False
+    mesh, data = x.device_mesh, data_axes(x.device_mesh)
+    dims = [mesh.mesh_dim_names.index(a) for a in data]
+    return (math.prod(mesh.size(i) for i in dims) > 1
+            and not any(x.placements[i].is_shard(0) for i in dims))
+
+
+# Set by ``decode_over_data`` for the layers of a decode step that GSPMD
+# splits over the data axes (``decode_product``).
+_OVER_DATA = contextvars.ContextVar("decode_over_data", default=False)
+
+
+@contextlib.contextmanager
+def decode_over_data(on: bool):
+    """Within it, ``decode_product`` splits over the data axes."""
+    tok = _OVER_DATA.set(on)
+    try:
+        yield
+    finally:
+        _OVER_DATA.reset(tok)
+
+
+def decode_product(x, w):
+    """``x @ w`` of a decode step's layer; within ``decode_over_data``
+    and where x's rows lie whole on every data card
+    (``rows_whole_over_data``), split over the data axes as well.
+    GSPMD does so for the JAX package's hymba-1.5b at B = 1: its vocab
+    does not divide the model axis, the embedding splits d over it
+    instead, and the residual it carries arrives at each product with
+    d split over the model axis.
+
+      * w's columns split over the model axis, or neither dim (q, k, v,
+        gate, up, in_proj): GSPMD moves x's split of d to the data axes
+        and contracts over them ([50] x [50, 688] per card for hymba's
+        gate); here w's rows, the contraction, lie over the data axes
+        and x's last dim with them, and the partial sums over them are
+        reduced after the product;
+      * w's rows split over the model axis (o, down, out_proj): GSPMD
+        splits w's columns over 8 of the data cards, to give the
+        residual its d split; DTensor cannot split part of a mesh axis,
+        so here they lie over all the data axes and x's last dim over
+        the model axis, and the result, a partial sum over "model"
+        split over the data axes, is made whole on every card.
+
+    A weight replicated over the data axes gives each card its slice
+    with nothing sent.  Outside the scope (a residual whole on every
+    card: the vocab divides the model axis, as gemma3-4b's does, and
+    GSPMD splits no decode product over the data axes), and for plain
+    tensors, ``x @ w``."""
+    if not (_OVER_DATA.get() and rows_whole_over_data(x)):
+        return x @ w
+    lead = (None,) * (x.dim() - 1)
+    if splits_over_model(w, 0):
+        return replicated(lay_out(x, *lead, "model")
+                          @ lay_out(w, "model", "batch"))
+    cols = "model" if splits_over_model(w, 1) else None
+    return reduced(lay_out(x, *lead, "batch") @ lay_out(w, "batch", cols))
 
 
 def qkv_project(p, x, cfg: ModelConfig, positions):
@@ -235,8 +309,11 @@ def attention(p, x, cfg: ModelConfig, *, causal=True, window=None,
 
 
 def policy_sdpa(q, k, v, cfg: ModelConfig, *, causal: bool, window=None):
-    """``sdpa``; under a sharding policy (the dry run) laid out so that
-    each card computes only its share of the S x S scores:
+    """``sdpa`` laid out so that each card computes only its share of
+    the S x S scores, as the JAX package's sharding policy constrains it
+    and as GSPMD lays it out with no policy (the baseline, whisper's
+    decode step) from the projections' sharded outputs, the batch over
+    the data axes (``sharding.pin``):
 
       * heads that split evenly over the model axis are sharded.  Where
         the kv heads do not (4 kv heads over 8 cards), k and v are first
@@ -247,53 +324,47 @@ def policy_sdpa(q, k, v, cfg: ModelConfig, *, causal: bool, window=None):
         would split the head_dim contraction and reduce the scores).
 
     Either way a card's scores need nothing of the other cards, so they
-    run on its own shards (``sharding.on_shards``); the output stays
-    laid out so, and ``out_project`` moves the merged heads to the o
-    weight's rows."""
-    m = policy_model_size()
-    if not m:
-        return _sdpa_as_laid_out(q, k, v, causal=causal, window=window)
+    run on its own shards (``sharding.on_shards``: DTensor's einsum path
+    would reach the same products through a sharding search that takes
+    hours on the 2-pod mesh, or refuse to flatten the split heads on
+    torch 2.11); the output stays laid out so, and ``out_project`` moves
+    the merged heads to the o weight's rows.  Fewer query rows than
+    model cards (a decode step's token), plain tensors and a mesh
+    without a model axis run ``sdpa`` on the layout they come in."""
+    m = model_axis_size(q)
     H, Hk = q.shape[2], k.shape[2]
+    if not m or (H % m and q.shape[1] < m):
+        return sdpa(q, k, v, causal=causal, window=window)
     if H % m:
-        q = constrain(q, "batch", "model", None, None)
-        k = constrain(k, "batch", None, None, None)
-        v = constrain(v, "batch", None, None, None)
-        off = shard_offset(q, 1)
-        return on_shards(lambda q, k, v: sdpa(q, k, v, causal=causal,
-                                              window=window, q_offset=off),
-                         q, k, v)
+        return _sdpa_rows(pin(q, "batch", "model", None, None),
+                          pin(k, "batch", None, None, None),
+                          pin(v, "batch", None, None, None),
+                          causal=causal, window=window)
     if Hk % m:
-        k, v = (repeat_kv(constrain(t, "batch", None, None, None), H // Hk)
+        k, v = (repeat_kv(pin(t, "batch", None, None, None), H // Hk)
                 for t in (k, v))
     heads = ("batch", None, "model", None)
     return on_shards(lambda q, k, v: sdpa(q, k, v, causal=causal,
                                           window=window),
-                     *(constrain(t, *heads) for t in (q, k, v)))
+                     *(pin(t, *heads) for t in (q, k, v)))
 
 
-def _sdpa_as_laid_out(q, k, v, *, causal: bool, window=None):
-    """``sdpa`` with no placement imposed (no policy): q, k and v laid
-    out alike over a mesh with only their batch and heads split, each kv
-    head whole on its card, run on each card's own shards in the layout
-    DTensor chose, which is what its einsums would compute there.  Its
-    einsum path would reach the same products through a sharding search
-    that takes hours on the 2-pod mesh (torch 2.13) or refuses to
-    flatten the split heads (2.11).  Any other layout runs ``sdpa`` as
-    it is."""
-    if not is_sharded(q) or not all(
-            is_sharded(t) and list(t.placements) == list(q.placements)
-            for t in (k, v)):
-        return sdpa(q, k, v, causal=causal, window=window)
-    mesh, heads = q.device_mesh, 1
-    for i, p in enumerate(q.placements):
-        if p.is_partial() or (p.is_shard() and p.dim not in (0, 2)):
-            return sdpa(q, k, v, causal=causal, window=window)
-        if p.is_shard(2):
-            heads *= mesh.size(i)
-    if k.shape[2] % heads:
-        return sdpa(q, k, v, causal=causal, window=window)
+def _sdpa_rows(q, k, v, *, causal: bool, window=None):
+    """``sdpa`` on each card's own query rows (q split along S, k and v
+    whole along it), the causal mask offset by the rows' first
+    position."""
+    off = shard_offset(q, 1)
     return on_shards(lambda q, k, v: sdpa(q, k, v, causal=causal,
-                                          window=window), q, k, v)
+                                          window=window, q_offset=off),
+                     q, k, v)
+
+
+def model_axis_size(x) -> int:
+    """The size of the "model" axis of the DTensor ``x``'s mesh; 0 for a
+    plain tensor or a mesh without that axis."""
+    if not is_sharded(x) or "model" not in x.device_mesh.mesh_dim_names:
+        return 0
+    return x.device_mesh.size(x.device_mesh.mesh_dim_names.index("model"))
 
 
 def repeat_kv(t, g: int):
@@ -337,7 +408,7 @@ def decode_attention(p, x, cfg: ModelConfig, k_cache, v_cache, pos, *,
     """
     B = x.shape[0]
     hd = cfg.resolved_head_dim
-    q = split_heads(x @ p["q"], cfg.num_heads, hd)
+    q = split_heads(decode_product(x, p["q"]), cfg.num_heads, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.rms_eps)
     cos, sin = rope_cos_sin(_rope_pos_for_decode(pos), hd, cfg.rope_theta)
@@ -351,7 +422,7 @@ def decode_attention(p, x, cfg: ModelConfig, k_cache, v_cache, pos, *,
         out = decode_on_shards(qg, k_cache, v_cache, pos, slot_pos,
                                cache_len_valid=cache_len_valid,
                                window=window)
-        return out.reshape(B, 1, cfg.q_dim) @ p["o"]
+        return decode_product(out.reshape(B, 1, cfg.q_dim), p["o"])
     logits = _decode_logits(qg, k_cache, pos, slot_pos, cache_len_valid,
                             window)
     probs = torch.softmax(logits, dim=-1).to(x.dtype)
@@ -477,8 +548,8 @@ def project_kv_one(p, x, cfg: ModelConfig, pos):
     """k/v for a single new token: x (B,1,d) -> (B,1,Hk,hd) each.
     ``pos``: 0-d or (B,) tensor."""
     hd = cfg.resolved_head_dim
-    k = split_heads(x @ p["k"], cfg.num_kv_heads, hd)
-    v = split_heads(x @ p["v"], cfg.num_kv_heads, hd)
+    k = split_heads(decode_product(x, p["k"]), cfg.num_kv_heads, hd)
+    v = split_heads(decode_product(x, p["v"]), cfg.num_kv_heads, hd)
     if cfg.qk_norm:
         k = rms_norm(k, p["k_norm"], cfg.rms_eps)
     cos, sin = rope_cos_sin(_rope_pos_for_decode(pos), hd, cfg.rope_theta)
@@ -616,12 +687,16 @@ def _moe_block_flat(p, x, cfg: ModelConfig, *,
         # data axes (each card runs its share of every expert's slots),
         # in the products too: left free, the FSDP shards of the expert
         # weights may decide their layout and leave every slot on every
-        # card
-        xe = constrain(xe, None, "batch", None)
-        h = F.silu(constrain(torch.bmm(xe, p["gate"]), None, "batch",
-                             "model")) \
-            * constrain(torch.bmm(xe, p["up"]), None, "batch", "model")
-        ye = constrain(torch.bmm(h, p["down"]), None, "batch", None)
+        # card.  GSPMD splits them so with no constraint, from the
+        # batch-sharded tokens: laid out in every mode, the slots and
+        # each product's result, gradients with them (torch 2.11 left
+        # the FSDP-sharded contraction split and every slot on every
+        # data card, grok-1-314b's train step 7.3x the policy's)
+        slots, hidden = (None, "batch", None), (None, "batch", "model")
+        xe = pin(xe, *slots)
+        h = F.silu(pin(torch.bmm(xe, p["gate"]), *hidden)) \
+            * pin(torch.bmm(xe, p["up"]), *hidden)
+        ye = pin(torch.bmm(h, p["down"]), *slots)
 
     w = r.topw.reshape(-1, 1).to(x.dtype) * r.kept.to(x.dtype)[:, None]
     s = torch.clamp(r.slot, max=E * C - 1)
@@ -872,9 +947,12 @@ def _mamba_in(p, x, cfg: ModelConfig, prev=None):
     # x_proj contracts the model-sharded channels: reduced here (with no
     # policy too: torch 2.11 cannot add dt_b's shard to a partial sum),
     # so that dt_w's product splits its channels instead of gathering
-    # dt_w
-    dt_r, Bm, Cm = torch.split(constrain(reduced(x_c @ p["x_proj"]),
-                                         "batch", None, None),
+    # dt_w, and laid out so in every mode: GSPMD reduces dt_r's gradient,
+    # a partial sum over the model axis from dt_w's product, before
+    # x_proj's backward; left a partial sum, it gathers x_c and x_proj
+    # on every model card
+    dt_r, Bm, Cm = torch.split(pin(reduced(x_c @ p["x_proj"]),
+                                   "batch", None, None),
                                [dtr, n, n], dim=-1)
     dt = F.softplus((dt_r @ p["dt_w"]).float()
                     + p["dt_b"][None, None]).to(x.dtype)
@@ -923,7 +1001,8 @@ def mamba_decode(p, x, cfg: ModelConfig, conv_state, ssm_state):
     cast to f32, and y contracts the state cast back to the model dtype
     with C in the model dtype."""
     n, dtr = cfg.ssm.state_dim, cfg.dt_rank
-    x_in, z = torch.chunk(x[:, 0] @ p["in_proj"], 2, dim=-1)     # (B,di)
+    x_in, z = torch.chunk(decode_product(x[:, 0], p["in_proj"]), 2,
+                          dim=-1)                                # (B,di)
     window = torch.cat([conv_state, x_in[:, None]], dim=1)       # (B,cw,di)
     x_c = torch.einsum("bcd,cd->bd", window, p["conv_w"]) + p["conv_b"][None]
     x_c = F.silu(x_c)
@@ -939,7 +1018,7 @@ def mamba_decode(p, x, cfg: ModelConfig, conv_state, ssm_state):
          + ((dt * x_c)[..., None] * Bm[:, None, :]).float())
     y = torch.einsum("bdn,bn->bd", h.to(x.dtype), Cm)
     y = y + x_c * p["D"][None].to(x.dtype)
-    out = (y * F.silu(z)) @ p["out_proj"]
+    out = decode_product(y * F.silu(z), p["out_proj"])
     return out[:, None], window[:, 1:], h.to(ssm_state.dtype)
 
 

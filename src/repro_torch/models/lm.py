@@ -62,8 +62,8 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import layers as L
-from repro_torch.sharding import (constrain, is_sharded, policy_model_size,
-                                  replicated, splittable, splittable_in_grad)
+from repro_torch.sharding import (constrain, is_sharded, pin, replicated,
+                                  splittable, splittable_in_grad)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -347,7 +347,7 @@ def _layer_apply(layer: DecoderLayer, x, cfg: ModelConfig, is_global: bool,
     # the attention's partial sums reduced here: left free, the residual
     # stays a partial sum, and so does its gradient, which makes the
     # backward of the o projection gather its input
-    x = constrain(x + a, "batch", None, None)
+    x = pin(x + a, "batch", None, None)
     y, aux = _ffn(layer, x, cfg, grouped=True)
     return x + y, aux
 
@@ -366,12 +366,12 @@ def backbone(params: DecoderLM, tokens, cfg: ModelConfig, *,
     positions = torch.arange(x.shape[1], device=x.device)
     aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer, g in zip(params.layers, layer_is_global(cfg)):
-        x = constrain(x, "batch", None, None)
+        x = pin(x, "batch", None, None)
         x, aux = _layer_apply(layer, x, cfg, g, positions, use_kernels)
         if aux is not None:
             aux_sum = aux_sum + aux
     # so that the head's gradient reaches the last layer reduced
-    x = constrain(x, "batch", None, None)
+    x = pin(x, "batch", None, None)
     return L.rms_norm(x, params.final_norm, cfg.rms_eps), aux_sum
 
 
@@ -395,17 +395,19 @@ def gold_logits(logits, t):
 
 
 def _vocab_split(logits):
-    """Logits pinned (a sharding policy active), the gradient too: their
-    vocab over the model axis where it divides the vocab, else whole on
-    every card, the head's partial sums over its split d reduced (hymba's
-    32,001, whisper's 51,865).  Left free, the head's weight gradient may
-    be computed over the whole vocab on every card, or split as the
-    torch version pleases."""
-    m = policy_model_size()
-    if m:
-        return constrain(logits, "batch", None,
-                         "model" if logits.shape[-1] % m == 0 else None)
-    return logits
+    """Logits pinned, the gradient too: their vocab over the model axis
+    where it divides the vocab, else whole on every card, the head's
+    partial sums over its split d reduced (hymba's 32,001, whisper's
+    51,865).  Constrained under a sharding policy, and laid out so in
+    every mode, as GSPMD lays out JAX's logits from the head's sharded
+    weight.  Left free, the head's weight gradient may be computed over
+    the whole vocab on every card, or split as the torch version
+    pleases."""
+    m = L.model_axis_size(logits)
+    if not m:
+        return logits
+    dims = ("batch", None, "model" if logits.shape[-1] % m == 0 else None)
+    return pin(logits, *dims)
 
 
 def chunked_ce(x, head, tokens, P: int, chunk: int):
@@ -633,10 +635,16 @@ def decode_step(params: DecoderLM, cache, token, pos, cfg: ModelConfig, *,
         active = _tensor(active, dev, torch.bool)
     x = _embed(params, token, cfg)[:, None, :]
     C = cache["k"].shape[2] if "k" in cache else 0
-    for i, (layer, g) in enumerate(zip(params.layers, layer_is_global(cfg))):
-        x = _decode_layer(layer, x, cfg, g,
-                          {name: t[i] for name, t in cache.items()},
-                          pos, C, active=active)
+    # an embedding split on d (the vocab does not divide the model axis)
+    # has GSPMD carry the residual so, and a step whose rows lie whole
+    # on every data card then splits the layers' products over the data
+    # axes (``layers.decode_product``); its head it does not
+    with L.decode_over_data(L.splits_over_model(params.embed, 1)):
+        for i, (layer, g) in enumerate(zip(params.layers,
+                                           layer_is_global(cfg))):
+            x = _decode_layer(layer, x, cfg, g,
+                              {name: t[i] for name, t in cache.items()},
+                              pos, C, active=active)
     return _head(params, x[:, 0], cfg), cache
 
 

@@ -513,6 +513,15 @@ def lay_out(x, *dims):
     return _Constrain.apply(x, tuple(_layout(dims, x.device_mesh)))
 
 
+def pin(x, *dims):
+    """``x`` laid out as named in every mode (``lay_out``), where GSPMD
+    lays out the JAX package's activation so whether its sharding
+    constraint is there (the policy) or not (the baseline).  The
+    ``constrain`` inside marks that constraint: it moves nothing that
+    ``lay_out`` would not."""
+    return lay_out(constrain(x, *dims), *dims)
+
+
 def splittable(x, dim: int, first: int):
     """``x`` ready to have its ``dim`` split into (``first``, rest), as a
     view back from flattened rows: a DTensor is replicated along the
