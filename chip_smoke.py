@@ -56,7 +56,14 @@ any failure raises and exits non-zero:
      unless the losses are finite, the requested batches never shrink,
      each gradstats kernel launched once per stats reduction, the flash
      kernel never launched, and the kernel and plain statistics of one
-     stats round's G agree.
+     stats round's G agree.  Training rematerialises each layer in the
+     backward (``models.loss_fn``'s default, as the JAX loss).  Then one
+     MicroLlama-300M inner step at full width in bf16 on 8 x 1024
+     tokens, where the activations outweigh the parameters and AdamW
+     state, through ``models.loss_fn`` with ``remat=True`` and with
+     ``remat=False``: peak memory and device ms of each, beside the
+     card's name and power limit.  Fails unless both losses are equal
+     and finite and the gradients agree.
 
   6. the cluster runtime: ``repro_torch.cluster.run_cluster`` with the
      training phase's settings at full width in bf16, on simulated H100
@@ -136,8 +143,10 @@ any failure raises and exits non-zero:
 
   12. the analysis layer: ``python -m repro_torch.launch.dryrun`` for
      microllama-300m's four shapes and the train_4k of phi3-medium-14b
-     and grok-1-314b (FSDP) and qwen3-0.6b, the prefills that trace a
-     scan or a sharded cache, and one combo of each kind torch 2.11 once
+     and grok-1-314b (FSDP) and qwen3-0.6b, falcon-mamba-7b's
+     long_500k (its Mamba step on the model axis's channels), the
+     prefills that trace a scan or a sharded cache, and one combo of
+     each kind torch 2.11 once
      refused (qwen3-0.6b decode_32k, deepseek-moe-16b prefill_32k,
      whisper-small train_4k, hymba-1.5b long_500k) on the h100_32x8
      mesh, and six combos again as the baseline (``REPRO_BASELINE=1``,
@@ -338,11 +347,16 @@ def flash_bound(q, k, v, causal: bool, window: int):
             "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
 
 
-def phase_env():
-    smi = subprocess.run(
+def smi_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip().splitlines()[0]
+
+
+def phase_env():
+    smi = smi_line()
     emit("env", nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
          device_count=torch.cuda.device_count(),
@@ -1301,6 +1315,69 @@ def phase_train():
     return launches
 
 
+REMAT_BATCH, REMAT_SEQ = 8, 1024
+
+
+def phase_remat() -> dict:
+    """One AdamW inner step of MicroLlama-300M at full width in bf16 on
+    ``REMAT_BATCH`` x ``REMAT_SEQ`` tokens (full logits), its loss
+    ``models.loss_fn`` with ``remat=True`` (the default: each layer
+    recomputed in the backward) and with ``remat=False`` (every layer's
+    activations kept): the allocator's peak over the first step and the
+    step's device ms.  Fails unless both losses are equal and finite and
+    each gradient agrees within the bf16 tolerance of its largest
+    entry."""
+    from repro_torch import models, optim
+    from repro_torch.configs import get_config
+    from repro_torch.core.diloco import make_inner_step
+
+    cfg = get_config("microllama-300m")
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    params = models.lm.param_dict(models.init_params(cfg, 0))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size,
+                                     (1, REMAT_BATCH, REMAT_SEQ),
+                                     generator=gen, device="cuda")}
+    opt = optim.adamw(3e-4)
+    state = opt.init(params)
+    rows, out = {}, {}
+    for remat in (True, False):
+        step = make_inner_step(
+            lambda p, b: models.loss_fn(p, b, cfg, remat=remat), opt, 1)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _, _, loss, grads = step(params, state, batch)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        out[remat] = (loss, grads)
+        ms = device_ms(lambda: step(params, state, batch), iters=5,
+                       warmup=1)
+        rows["remat" if remat else "no_remat"] = {
+            "max_memory_allocated": peak, "above_inputs": peak - before,
+            "device_ms": ms, "loss": float(loss)}
+    (loss, grads), (loss_k, grads_k) = out[True], out[False]
+    bitwise = all(torch.equal(grads[k], grads_k[k]) for k in grads)
+    worst = max(((grads[k].float() - grads_k[k].float()).abs().max()
+                 / grads_k[k].float().abs().max().clamp_min(1e-30)).item()
+                for k in grads)
+    emit("train_remat", arch=cfg.name, dtype=cfg.dtype,
+         tokens=[REMAT_BATCH, REMAT_SEQ], nvidia_smi=smi_line(),
+         torch=torch.__version__, grads_bitwise_equal=bitwise,
+         max_rel_grad_gap=worst, **rows)
+    if not (torch.equal(loss, loss_k) and math.isfinite(float(loss))):
+        raise AssertionError(f"remat loss {float(loss)} != "
+                             f"{float(loss_k)} without remat")
+    if worst > TOL[torch.bfloat16]:
+        raise AssertionError(f"remat gradients differ by {worst} of the "
+                             "largest entry")
+    del params, state, grads, grads_k, out
+    torch.cuda.empty_cache()
+    return rows
+
+
 PROBE_ROWS, PROBE_SEQ = 64, 128
 STATS_NAMES = ("mean_norm2", "sigma2", "ip_var", "orth_var", "b")
 
@@ -2238,7 +2315,8 @@ def phase_cluster_mp():
 # ----------------------------------------------------------------------
 
 # (arch, shape) of the dry runs: MicroLlama-300M's four shapes, two FSDP
-# combos (more than 5e9 parameters), qwen3-0.6b's training step, the
+# combos (more than 5e9 parameters), qwen3-0.6b's training step,
+# falcon-mamba-7b's batch-1 decode (laid out on each card's shards), the
 # prefills that trace a trip-scaled scan (ssm, hybrid) or write a sharded
 # self-attention cache (encoder-decoder), and one combo of each kind that
 # torch 2.11 refused before PR 21 (decode attention over a cache split
@@ -2254,7 +2332,8 @@ REFUSED_COMBOS = [("qwen3-0.6b", "decode_32k"),
 DRYRUN_COMBOS = [("microllama-300m", s) for s in
                  ("train_4k", "prefill_32k", "decode_32k", "long_500k")] \
     + [("phi3-medium-14b", "train_4k"), ("grok-1-314b", "train_4k"),
-       ("qwen3-0.6b", "train_4k")] + PREFILL_COMBOS + REFUSED_COMBOS
+       ("qwen3-0.6b", "train_4k"), ("falcon-mamba-7b", "long_500k")] \
+    + PREFILL_COMBOS + REFUSED_COMBOS
 # the baseline's dry runs (REPRO_BASELINE=1, written to their own
 # directory), each printed beside the policy's count of the same combo
 # where phase 12 traces it; the two MoE train steps run the dispatch
@@ -2268,12 +2347,13 @@ BASELINE_COMBOS = [("microllama-300m", "train_4k"),
 # per-card train_4k FLOPs that the CPU dry run counts on torch 2.13
 # (`python -m repro_torch.launch.dryrun --all`, PERF.md section 5); the
 # card's torch must count the same: with the gradients constrained like
-# their activations, the unsharded step's count over 256, grok-1-314b's
+# their activations and each layer recomputed in the backward (the
+# losses' remat), the unsharded step's count over 256, grok-1-314b's
 # plus its replicated router's product on every model card
-TRAIN_FLOPS_TORCH_2_13 = {"microllama-300m": 9154526183424.0,
-                          "qwen3-0.6b": 26190850818048.0,
-                          "phi3-medium-14b": 388863256166400.0,
-                          "grok-1-314b": 2612692493795328.0}
+TRAIN_FLOPS_TORCH_2_13 = {"microllama-300m": 11370729308160.0,
+                          "qwen3-0.6b": 32925359538176.0,
+                          "phi3-medium-14b": 484211530137600.0,
+                          "grok-1-314b": 3476934403031040.0}
 # per-card FLOPs of the former refusals and of the baseline combos on
 # the CPU's torch 2.13 (the same sweeps, the second with
 # REPRO_BASELINE=1), which the card's torch must count too
@@ -2281,18 +2361,19 @@ FLOPS_TORCH_2_13 = {
     **{(arch, "train_4k"): f for arch, f in TRAIN_FLOPS_TORCH_2_13.items()},
     ("qwen3-0.6b", "decode_32k"): 4354080768.0,
     ("deepseek-moe-16b", "prefill_32k"): 53725798334464.0,
-    ("whisper-small", "train_4k"): 7090378113024.0,
-    ("hymba-1.5b", "long_500k"): 32051600.0}
+    ("whisper-small", "train_4k"): 8557633732608.0,
+    ("hymba-1.5b", "long_500k"): 44416400.0,
+    ("falcon-mamba-7b", "long_500k"): 126337024.0}
 # the baseline's train steps count the policy's FLOPs, its prefills the
 # policy's plus the head over every position (whisper-small's prefill
 # has no more logits than the policy's)
 BASELINE_FLOPS_TORCH_2_13 = {
-    ("microllama-300m", "train_4k"): 9154526183424.0,
+    ("microllama-300m", "train_4k"): 11370729308160.0,
     ("microllama-300m", "prefill_32k"): 8824010309632.0,
     ("falcon-mamba-7b", "prefill_32k"): 57363583205376.0,
     ("whisper-small", "prefill_32k"): 47795581632.0,
-    ("grok-1-314b", "train_4k"): 2612692493795328.0,
-    ("deepseek-moe-16b", "train_4k"): 85515835539456.0}
+    ("grok-1-314b", "train_4k"): 3476934403031040.0,
+    ("deepseek-moe-16b", "train_4k"): 111642121601024.0}
 
 
 def dryrun_combo(arch: str, shape: str, out: Path,
@@ -2520,6 +2601,7 @@ def main() -> int:
     timed("prefill_f32_hybrid", phase_hybrid_f32)
     timed("server_ssm", phase_server, "falcon-mamba-7b", "mamba_scan")
     train_launches = timed("train", phase_train)
+    timed("train_remat", phase_remat)
     cluster_launches = timed("cluster", phase_cluster)
     mp_launches, example_flash = timed("cluster_mp", phase_cluster_mp)
     probe_launches = timed("probe", phase_probe)

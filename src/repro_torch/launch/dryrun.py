@@ -34,8 +34,10 @@ count, changes between versions): ``lower_s`` is the time
 to lay out the sharded arguments, ``compile_s`` the time of the traced
 step (eager PyTorch compiles nothing, and ``generated_code_bytes`` is
 0), ``memory.temp_bytes`` the peak of the bytes the step allocated
-(``op_analysis``).  The port's training does not remat (the JAX loss
-does), so its train-step temp bytes run above the JAX package's.
+(``op_analysis``).  The train step rematerialises each layer, as the
+JAX loss does by default (``models.loss_fn``): the backward recomputes
+the layer's forward, whose FLOPs and collectives are counted again, and
+the peak holds one layer's activations, not every layer's.
 
 ``REPRO_BASELINE=1`` (read into ``BASELINE`` at import, as the JAX
 package does) traces the baseline: the port's programs without their

@@ -42,16 +42,22 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None):
     return _family(cfg).init_params(cfg, seed, device=device)
 
 
-def loss_fn(params, batch, cfg: ModelConfig, *, logit_chunk=None):
+def loss_fn(params, batch, cfg: ModelConfig, *, remat=True,
+            logit_chunk=None):
     """Next-token cross-entropy (``lm.loss_fn`` or ``encdec.loss_fn``)
     -> (loss, metrics).
 
     ``params``: the training dict ``{name: tensor}`` (``lm.param_dict``).
     It runs through ``torch.func.functional_call`` on a meta-device
-    template, so gradients reach its tensors.  ``logit_chunk`` is the
-    decoder-only loss's (the JAX encoder-decoder loss takes none)."""
+    template, so gradients reach its tensors.  ``remat``: the backward
+    recomputes each layer's forward instead of keeping its activations
+    (``lm.run_layers``), as the JAX loss does by default.
+    ``logit_chunk`` is the decoder-only loss's (the JAX encoder-decoder
+    loss takes none)."""
     fam = _family(cfg)
-    kw = {} if cfg.is_encoder_decoder else {"logit_chunk": logit_chunk}
+    kw = {"remat": remat}
+    if not cfg.is_encoder_decoder:
+        kw["logit_chunk"] = logit_chunk
     return torch.func.functional_call(
         fam.template(params, cfg), params, (fam.loss_fn, batch, cfg), kw)
 

@@ -208,12 +208,16 @@ def _head(params: EncDecLM, x, cfg: ModelConfig):
                             params.embed.T)
 
 
-def decode_forward(params: EncDecLM, tokens, enc_out, cfg: ModelConfig):
+def decode_forward(params: EncDecLM, tokens, enc_out, cfg: ModelConfig, *,
+                   remat: bool = True):
     """Teacher-forced decoder pass: tokens (B,S) -> logits (B,S,V), its
-    attention on the plain path."""
+    attention on the plain path.  ``remat``: recompute each decoder
+    layer in the backward (``lm.run_layers``), JAX's default; the
+    encoder keeps its activations, as in JAX."""
     x = _embed(params, tokens, cfg)
     positions = torch.arange(x.shape[1], device=x.device)
-    for layer in params.dec_layers:
+
+    def body(layer, i, x):
         # pinned as the encoder's layers are
         x = pin(x, "batch", None, None)
         h = L.rms_norm(x, layer.attn_norm, cfg.rms_eps)
@@ -224,17 +228,21 @@ def decode_forward(params: EncDecLM, tokens, enc_out, cfg: ModelConfig):
         x = pin(x + _cross_attention(
             layer.xattn, h, enc_kv(layer.xattn, enc_out, cfg), cfg),
             "batch", None, None)
-        x = _mlp(layer, x, cfg)
+        return (_mlp(layer, x, cfg),)
+
+    x, = lm.run_layers(params, "dec_layers", body, (x,), remat)
     return _head(params, pin(x, "batch", None, None), cfg)
 
 
-def loss_fn(params: EncDecLM, batch, cfg: ModelConfig):
+def loss_fn(params: EncDecLM, batch, cfg: ModelConfig, *,
+            remat: bool = True):
     """batch: {"frames": (B,F,d), "tokens": (B,S)} -> (loss, metrics):
     the mean next-token cross-entropy over tokens 1 .. S-1 (aux 0).
-    Attention runs on the plain path, as in JAX training."""
+    Attention runs on the plain path, as in JAX training.  ``remat``:
+    ``decode_forward``'s."""
     tokens = batch["tokens"]
     enc_out = encode(params, batch["frames"], cfg)
-    logits = decode_forward(params, tokens, enc_out, cfg)
+    logits = decode_forward(params, tokens, enc_out, cfg, remat=remat)
     pred = logits[:, :-1].float()
     logz = torch.logsumexp(pred, dim=-1)
     gold = lm.gold_logits(pred, tokens[:, 1:, None].long())

@@ -22,12 +22,13 @@ from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import Replicate, Shard
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import Partial, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.sharding import (constrain, data_axes, flattenable, full,
-                                  is_sharded, lay_out, on_shards, pin,
-                                  pin_grad, reduced, replicated,
+from repro_torch.sharding import (_from_shards, constrain, data_axes,
+                                  flattenable, full, is_sharded, lay_out,
+                                  on_shards, pin, pin_grad, reduced,
                                   shard_offset, whole_groups,
                                   whole_groups_in_grad)
 from repro_torch.trips import repeated
@@ -184,10 +185,16 @@ def rows_whole_over_data(x) -> bool:
     tensor."""
     if not is_sharded(x):
         return False
-    mesh, data = x.device_mesh, data_axes(x.device_mesh)
-    dims = [mesh.mesh_dim_names.index(a) for a in data]
-    return (math.prod(mesh.size(i) for i in dims) > 1
+    mesh = x.device_mesh
+    dims = [mesh.mesh_dim_names.index(a) for a in data_axes(mesh)]
+    return (_data_cards(mesh) > 1
             and not any(x.placements[i].is_shard(0) for i in dims))
+
+
+def _data_cards(mesh) -> int:
+    """The number of cards over a mesh's data axes together."""
+    return math.prod(mesh.size(mesh.mesh_dim_names.index(a))
+                     for a in data_axes(mesh))
 
 
 # Set by ``decode_over_data`` for the layers of a decode step that GSPMD
@@ -205,27 +212,76 @@ def decode_over_data(on: bool):
         _OVER_DATA.reset(tok)
 
 
+# (mesh, its data cards viewed as (outer, inner)): one view at a time,
+# for the mesh of the decode step being traced
+_DATA_VIEW = [None, None]
+
+
+def data_view(mesh):
+    """The same ranks as ``mesh``, its data cards as two mesh dims
+    ("outer", "inner") before "model", the inner one as wide as the
+    model axis: DTensor splits only whole mesh dims, and GSPMD splits a
+    row-parallel decode product's output over as many data cards as the
+    model axis has (8 of hymba-1.5b's 32).  The data axes come before
+    "model" in every production mesh, so the ranks keep their order."""
+    if _DATA_VIEW[0] is not mesh:
+        m = mesh.size(mesh.mesh_dim_names.index("model"))
+        view = DeviceMesh(mesh.device_type,
+                          mesh.mesh.reshape(_data_cards(mesh) // m, m, m),
+                          mesh_dim_names=("outer", "inner", "model"))
+        _DATA_VIEW[:] = [mesh, view]
+    return _DATA_VIEW[1]
+
+
+def _on_view(x, view, places):
+    """The shard of the DTensor ``x`` as a DTensor of ``view``, laid out
+    by ``places`` (the same shard on every rank, by the views' rank
+    order)."""
+    return _from_shards(x._local_tensor, view, places, x.shape)
+
+
+def _over_inner_data(x, w):
+    """``x @ w`` for a w whose rows split over the model axis, its output
+    columns split over the inner data cards of ``data_view`` and made
+    whole on every card: [K/m] x [K/m, N/m] per card."""
+    mesh, lead = x.device_mesh, (None,) * (x.dim() - 1)
+    view = data_view(mesh)
+    R = Replicate()
+    xv = _on_view(lay_out(x, *lead, "model"), view, [R, R, Shard(x.dim() - 1)])
+    wv = _on_view(lay_out(w, "model", None), view,
+                  [R, R, Shard(0)]).redistribute(view, [R, Shard(1), Shard(0)])
+    y = (xv @ wv).redistribute(view, [R, R, R])
+    return _from_shards(y._local_tensor, mesh, [R] * mesh.ndim, y.shape)
+
+
 def decode_product(x, w):
     """``x @ w`` of a decode step's layer; within ``decode_over_data``
     and where x's rows lie whole on every data card
-    (``rows_whole_over_data``), split over the data axes as well.
-    GSPMD does so for the JAX package's hymba-1.5b at B = 1: its vocab
-    does not divide the model axis, the embedding splits d over it
-    instead, and the residual it carries arrives at each product with
-    d split over the model axis.
+    (``rows_whole_over_data``), split over the data axes as GSPMD splits
+    the JAX package's hymba-1.5b at B = 1: its vocab does not divide the
+    model axis, the embedding splits d over it instead, and the residual
+    it carries arrives at each product with d split over the model
+    axis.  The rule, read from JAX's compiled programs (m the model
+    axis's cards, D the data cards):
 
+      * m does not divide D (a (2, 4) mesh): GSPMD gathers x over the
+        model axis and runs the plain tensor-parallel products, with
+        nothing over the data axes; so does this;
+      * w's rows split over the model axis (o, down, out_proj): the
+        output's columns split over m of the D data cards, to give the
+        residual its d split ([200] x [200, 200] per card for hymba's o
+        on (32, 8)).  DTensor splits only whole mesh dims, so the
+        product runs on ``data_view``'s inner data dim, and its result,
+        a partial sum over "model", is made whole on every card;
       * w's columns split over the model axis, or neither dim (q, k, v,
-        gate, up, in_proj): GSPMD moves x's split of d to the data axes
-        and contracts over them ([50] x [50, 688] per card for hymba's
-        gate); here w's rows, the contraction, lie over the data axes
-        and x's last dim with them, and the partial sums over them are
-        reduced after the product;
-      * w's rows split over the model axis (o, down, out_proj): GSPMD
-        splits w's columns over 8 of the data cards, to give the
-        residual its d split; DTensor cannot split part of a mesh axis,
-        so here they lie over all the data axes and x's last dim over
-        the model axis, and the result, a partial sum over "model"
-        split over the data axes, is made whole on every card.
+        gate, up, in_proj): where w's columns per card are fewer than
+        x's d, GSPMD moves x's split of d to the data axes and contracts
+        over them ([50] x [50, 688] per card for hymba's gate: reducing
+        the output over the data cards moves less than gathering x);
+        here w's rows lie over the data axes and x's last dim with them,
+        and the partial sums over them are reduced after the product.
+        Otherwise (d 256 with in_proj's 256 columns per card on a (4, 4)
+        mesh) GSPMD gathers x, and this takes ``x @ w``.
 
     A weight replicated over the data axes gives each card its slice
     with nothing sent.  Outside the scope (a residual whole on every
@@ -234,12 +290,37 @@ def decode_product(x, w):
     tensors, ``x @ w``."""
     if not (_OVER_DATA.get() and rows_whole_over_data(x)):
         return x @ w
-    lead = (None,) * (x.dim() - 1)
+    mesh = x.device_mesh
+    m = mesh.size(mesh.mesh_dim_names.index("model"))
+    if _data_cards(mesh) % m:
+        return x @ w
     if splits_over_model(w, 0):
-        return replicated(lay_out(x, *lead, "model")
-                          @ lay_out(w, "model", "batch"))
-    cols = "model" if splits_over_model(w, 1) else None
-    return reduced(lay_out(x, *lead, "batch") @ lay_out(w, "batch", cols))
+        return _over_inner_data(x, w)
+    model_cols = splits_over_model(w, 1)
+    if w.shape[1] // (m if model_cols else 1) >= x.shape[-1]:
+        return x @ w
+    lead = (None,) * (x.dim() - 1)
+    return reduced(lay_out(x, *lead, "batch")
+                   @ lay_out(w, "batch", "model" if model_cols else None))
+
+
+def channels_over_model(state, dim: int):
+    """A decode state with its channels (``dim``) split over the model
+    axis only: a DTensor that the long_500k plan spreads over the data
+    axes too (falcon-mamba-7b's 8,192 channels over all 256 cards) is
+    gathered over them, as GSPMD does before the Mamba step, which it
+    runs on the model axis's channels whatever the state's layout (the
+    new state is laid back out where the cache is written).  Anything
+    else comes back as it is."""
+    if not is_sharded(state):
+        return state
+    mesh, data = state.device_mesh, data_axes(state.device_mesh)
+    dim %= state.dim()
+    places = [Replicate() if name in data and p.is_shard(dim) else p
+              for name, p in zip(mesh.mesh_dim_names, state.placements)]
+    if places == list(state.placements):
+        return state
+    return state.redistribute(mesh, places)
 
 
 def qkv_project(p, x, cfg: ModelConfig, positions):
@@ -703,19 +784,21 @@ def _moe_block_flat(p, x, cfg: ModelConfig, *,
     y = (ye[s // C, s % C] * w).reshape(T, K, d)
     y = y.sum(dim=1)
 
-    # the shared experts, one SwiGLU each: JAX's einsums over the stacked
-    # (s, d, f) weights as 2-D products, which DTensor shards as the
-    # dense MLP's (torch 2.11 cannot flatten the sharded f in the einsum)
-    for i in range(mc.num_shared):
-        y = y + swiglu(x, p["s_gate"][i], p["s_up"][i], p["s_down"][i])
-
-    # load-balance aux loss (Switch-style)
+    # load-balance aux loss (Switch-style).  Taken before the shared
+    # experts, so that a recompute in the backward (``lm.run_layers``)
+    # stops before their down products, whose outputs it never reads
     flat_e = r.topi.reshape(-1)
     counts = torch.zeros((E,), dtype=torch.long, device=flat_e.device)
     counts = counts.scatter_add_(0, flat_e, torch.ones_like(flat_e))
     frac_tokens = counts.float() / (T * K)
     mean_prob = torch.mean(r.probs, dim=0)
     aux = mc.load_balance_coef * E * torch.sum(frac_tokens * mean_prob)
+
+    # the shared experts, one SwiGLU each: JAX's einsums over the stacked
+    # (s, d, f) weights as 2-D products, which DTensor shards as the
+    # dense MLP's (torch 2.11 cannot flatten the sharded f in the einsum)
+    for i in range(mc.num_shared):
+        y = y + swiglu(x, p["s_gate"][i], p["s_up"][i], p["s_down"][i])
     return y, aux
 
 
@@ -1001,6 +1084,8 @@ def mamba_decode(p, x, cfg: ModelConfig, conv_state, ssm_state):
     cast to f32, and y contracts the state cast back to the model dtype
     with C in the model dtype."""
     n, dtr = cfg.ssm.state_dim, cfg.dt_rank
+    conv_state = channels_over_model(conv_state, -1)
+    ssm_state = channels_over_model(ssm_state, 1)
     x_in, z = torch.chunk(decode_product(x[:, 0], p["in_proj"]), 2,
                           dim=-1)                                # (B,di)
     window = torch.cat([conv_state, x_in[:, None]], dim=1)       # (B,cw,di)
@@ -1009,17 +1094,39 @@ def mamba_decode(p, x, cfg: ModelConfig, conv_state, ssm_state):
     # x_proj contracts the channels: its partial sums over a sharded di
     # reduced here, as ``_mamba_in`` does, or dt_w's product and y's
     # would each run over every channel on every card
-    dt_r, Bm, Cm = torch.split(reduced(x_c @ p["x_proj"]), [dtr, n, n],
-                               dim=-1)
+    xp = _channel_product(torch.matmul, x_c, p["x_proj"], ("model", None),
+                          (x_c.shape[0], p["x_proj"].shape[1]), partial=True)
+    dt_r, Bm, Cm = torch.split(reduced(xp), [dtr, n, n], dim=-1)
     dt = F.softplus((dt_r @ p["dt_w"]).float()
                     + p["dt_b"][None]).to(x.dtype)
     a = torch.exp(dt[..., None] * (-torch.exp(p["A_log"]))[None])  # (B,di,n)
     h = (a * ssm_state.float()
          + ((dt * x_c)[..., None] * Bm[:, None, :]).float())
-    y = torch.einsum("bdn,bn->bd", h.to(x.dtype), Cm)
+    y = _channel_product(lambda u, c: torch.einsum("bdn,bn->bd", u, c),
+                         h.to(x.dtype), Cm, (None, None), h.shape[:2])
     y = y + x_c * p["D"][None].to(x.dtype)
     out = decode_product(y * F.silu(z), p["out_proj"])
     return out[:, None], window[:, 1:], h.to(ssm_state.dtype)
+
+
+def _channel_product(fn, a, b, b_dims, shape, partial: bool = False):
+    """``fn(a, b)`` of a decode step's Mamba block, ``a`` a (B, di, ...)
+    split over the model axis on its channels, ``b`` laid out as
+    ``b_dims``, the result of global ``shape``.  Where the rows lie
+    whole on every data card (the B = 1 plan), it runs on each card's
+    own shards, as GSPMD runs it (x_proj's [1024] x [1024, 288] per card
+    for falcon-mamba-7b): DTensor would split it over the data axes too,
+    since a replica's further split sends nothing.  ``partial``: ``fn``
+    contracts the channels, and its result is a partial sum over the
+    model axis; otherwise it keeps them, split as ``a``'s."""
+    if not rows_whole_over_data(a):
+        return fn(a, b)
+    on_model = Partial() if partial else Shard(1)
+    places = [on_model if name == "model" else Replicate()
+              for name in a.device_mesh.mesh_dim_names]
+    return on_shards(lambda u, v: (fn(u, v),),
+                     lay_out(a, None, "model", *(None,) * (a.dim() - 2)),
+                     lay_out(b, *b_dims), outs=[(shape, places)])[0]
 
 
 def mamba_forward_chunk(p, x, cfg: ModelConfig, conv_state, ssm_state):

@@ -57,6 +57,7 @@ from typing import Dict, List, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -356,30 +357,105 @@ def _layer_apply(layer: DecoderLayer, x, cfg: ModelConfig, is_global: bool,
 # forward / prefill
 # --------------------------------------------------------------------
 
+def _grouped(cfg: ModelConfig):
+    """(groups, layers per group, tail layers) of a local/global
+    interleaved arch (gemma3 5:1), as JAX's ``_grouped``; None for a
+    uniform one."""
+    if cfg.global_every is None or cfg.sliding_window is None:
+        return None
+    g = cfg.global_every
+    ng = cfg.num_layers // g
+    if ng == 0:
+        return None
+    return ng, g, cfg.num_layers - ng * g
+
+
+def remat_spans(cfg: ModelConfig) -> List[range]:
+    """The layers that each checkpoint of ``run_layers`` covers, where
+    JAX's ``_run_layers`` puts ``jax.checkpoint``: one layer each, or
+    for an interleaved arch one group of ``global_every`` layers each,
+    then one per tail layer."""
+    grp = _grouped(cfg)
+    if grp is None:
+        return [range(i, i + 1) for i in range(cfg.num_layers)]
+    ng, g, _ = grp
+    return ([range(i * g, (i + 1) * g) for i in range(ng)]
+            + [range(i, i + 1) for i in range(ng * g, cfg.num_layers)])
+
+
+def run_layers(params: nn.Module, stack: str, body, carry: tuple,
+               remat: bool, spans=None) -> tuple:
+    """``carry = body(layer, i, *carry)`` over the layers of
+    ``params.<stack>`` in order.  With ``remat``, and where autograd
+    records, each span of ``spans`` (default: one per layer) runs in one
+    non-reentrant ``torch.utils.checkpoint``: the backward recomputes
+    its activations instead of keeping them, as ``jax.checkpoint`` does.
+    The recompute
+    stops at the span's last tensor that the backward needs (PyTorch's
+    default early stop), so a layer's last product, whose output the
+    backward never reads, is not recomputed, as XLA removes it from
+    JAX's.  The span's parameters are inputs of the checkpoint, bound to
+    the module again for the recompute (``functional_call``): the
+    backward runs after ``models.loss_fn``'s own ``functional_call`` has
+    put the template's meta tensors back."""
+    layers = getattr(params, stack)
+    if spans is None:
+        spans = [range(i, i + 1) for i in range(len(layers))]
+    if not (remat and torch.is_grad_enabled()):
+        for i, layer in enumerate(layers):
+            carry = body(layer, i, *carry)
+        return carry
+
+    def span_fn(module, span, *carry):
+        for i in span:
+            carry = body(getattr(module, stack)[i], i, *carry)
+        return carry
+
+    def run(span, tensors, *carry):
+        return torch.func.functional_call(params, tensors,
+                                          (span_fn, span, *carry))
+
+    for span in spans:
+        tensors = {n: t for i in span for n, t in
+                   layers[i].named_parameters(prefix=f"{stack}.{i}")}
+        carry = checkpoint(run, span, tensors, *carry, use_reentrant=False,
+                           preserve_rng_state=False)
+    return carry
+
+
 def backbone(params: DecoderLM, tokens, cfg: ModelConfig, *,
-             prefix_emb=None, use_kernels: bool = False):
+             prefix_emb=None, use_kernels: bool = False, remat: bool = True):
     """tokens (B,S) -> (final hidden states (B, P+S, d) after the final
     norm, aux): aux is the MoE layers' load-balance losses summed (0
     without MoE).  ``prefix_emb``: (B, P, d) stub embeddings (VLM
-    patches) in front of the tokens; P = 0 without it."""
+    patches) in front of the tokens; P = 0 without it.  ``remat``:
+    recompute each layer (each group of an interleaved arch) in the
+    backward (``run_layers``), JAX's default."""
     x = constrain(_embed(params, tokens, cfg, prefix_emb), "batch", None, None)
     positions = torch.arange(x.shape[1], device=x.device)
-    aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
-    for layer, g in zip(params.layers, layer_is_global(cfg)):
+    is_global = layer_is_global(cfg)
+
+    def body(layer, i, x, aux_sum):
         x = pin(x, "batch", None, None)
-        x, aux = _layer_apply(layer, x, cfg, g, positions, use_kernels)
-        if aux is not None:
-            aux_sum = aux_sum + aux
+        x, aux = _layer_apply(layer, x, cfg, is_global[i], positions,
+                              use_kernels)
+        return x, (aux_sum if aux is None else aux_sum + aux)
+
+    x, aux_sum = run_layers(
+        params, "layers", body,
+        (x, torch.zeros((), dtype=torch.float32, device=x.device)),
+        remat, remat_spans(cfg))
     # so that the head's gradient reaches the last layer reduced
     x = pin(x, "batch", None, None)
     return L.rms_norm(x, params.final_norm, cfg.rms_eps), aux_sum
 
 
 def forward(params: DecoderLM, tokens, cfg: ModelConfig, *,
-            prefix_emb=None, use_kernels: bool = False):
-    """tokens (B,S) -> (logits (B, P+S, V), aux)."""
+            prefix_emb=None, use_kernels: bool = False, remat: bool = True):
+    """tokens (B,S) -> (logits (B, P+S, V), aux); ``remat``:
+    ``backbone``'s."""
     x, aux = backbone(params, tokens, cfg, prefix_emb=prefix_emb,
-                      use_kernels=use_kernels)
+                      use_kernels=use_kernels, remat=remat)
     return _head_product(x, _head_weight(params, cfg)), aux
 
 
@@ -432,7 +508,7 @@ def chunked_ce(x, head, tokens, P: int, chunk: int):
 
 
 def loss_fn(params: DecoderLM, batch, cfg: ModelConfig, *,
-            logit_chunk: Optional[int] = None):
+            remat: bool = True, logit_chunk: Optional[int] = None):
     """Next-token cross-entropy.  batch: {"tokens": (B,S) int} and, for
     the VLM, "prefix_emb" (B, P, d).
 
@@ -441,6 +517,7 @@ def loss_fn(params: DecoderLM, batch, cfg: ModelConfig, *,
     layers' load-balance losses summed, over the layer count; zero
     without MoE).
     ``logit_chunk``: compute the CE in sequence chunks of this size.
+    ``remat``: recompute each layer in the backward (``backbone``).
     Attention runs on the plain path (JAX training builds its loss with
     ``use_kernels=False``; the flash kernel has no backward)."""
     tokens = batch["tokens"]
@@ -448,10 +525,12 @@ def loss_fn(params: DecoderLM, batch, cfg: ModelConfig, *,
     P = 0 if prefix is None else prefix.shape[1]
     head = _head_weight(params, cfg)
     if logit_chunk is not None:
-        x, aux = backbone(params, tokens, cfg, prefix_emb=prefix)
+        x, aux = backbone(params, tokens, cfg, prefix_emb=prefix,
+                          remat=remat)
         ce = chunked_ce(x, head, tokens, P, logit_chunk)
     else:
-        logits, aux = forward(params, tokens, cfg, prefix_emb=prefix)
+        logits, aux = forward(params, tokens, cfg, prefix_emb=prefix,
+                              remat=remat)
         pred = logits[:, P:-1].float()                 # predicts tokens[1:]
         logz = torch.logsumexp(pred, dim=-1)
         gold = gold_logits(pred, tokens[:, 1:, None].long())

@@ -7,11 +7,13 @@ count FLOPs of the matmul family only, so on the reduced MicroLlama
 prefill of B=2, S=64 with last-token logits counts exactly 319,815,680
 in both: 301,989,888 for the projections, 16,777,216 for the full S x S
 attention and 1,048,576 for the logits.  On a fake (2, 2) mesh the
-per-card count is a quarter of that.  The gradient of the loss counts
-what ``jax.grad`` of ``loss_fn(..., remat=False)`` counts; with a
-logit chunk that does not divide S - 1 the JAX loss pads the last chunk
-and the port's is ragged, so JAX counts the padded row's head product
-more (stated in ``test_train_step_flops_equal_jax_grad``).
+per-card count is a quarter of that.  The gradient of the loss with
+``remat=False`` counts what ``jax.grad`` of ``loss_fn(..., remat=False)``
+counts (the default, ``remat=True``, is held to JAX's default in
+``test_torch_remat``); with a logit chunk that does not divide S - 1 the
+JAX loss pads the last chunk and the port's is ragged, so JAX counts the
+padded row's head product more (stated in
+``test_train_step_flops_equal_jax_grad``).
 
 Nothing here imports ``repro.launch.dryrun``, which sets a 512-device
 ``XLA_FLAGS`` at import.  Every test leaves no process group behind.
@@ -174,7 +176,8 @@ def test_train_step_flops_equal_jax_grad(chunk):
                    {"tokens": jax.ShapeDtypeStruct((B, S), jnp.int32)})
     with op_analysis.OpCounter() as c:
         value_and_grad(
-            lambda p, b: models.loss_fn(p, b, tcfg, logit_chunk=chunk),
+            lambda p, b: models.loss_fn(p, b, tcfg, remat=False,
+                                        logit_chunk=chunk),
             specs.abstract_params(tcfg), {"tokens": meta_tokens()})
     if chunk is None:
         assert c.cost.flops == jf == 1_157_627_904

@@ -218,7 +218,8 @@ def test_train_step_splits_evenly_and_gradients_keep_the_constraint(
     backward product gathers what the forward kept sharded.  The MoE
     router (d, E) is replicated, so both model cards compute its logits
     for the card's data rows: one router product per layer above the
-    even split."""
+    even split, run twice (in the forward, and again where the backward
+    recomputes the layer: the loss rematerialises each layer)."""
     cfg = reduced(get_config(arch))
     shape = InputShape("t", 64, 8, "train")
     step, opt = dryrun.make_train_step(cfg, 1)
@@ -244,8 +245,8 @@ def test_train_step_splits_evenly_and_gradients_keep_the_constraint(
     gap = 0
     if cfg.moe is not None:
         rows = 8 // 2 * 64                 # a data shard's tokens
-        gap = cfg.num_layers * 2 * rows * cfg.d_model * cfg.moe.num_experts \
-            * (1 - 1 / 2)
+        gap = 2 * cfg.num_layers * 2 * rows * cfg.d_model \
+            * cfg.moe.num_experts * (1 - 1 / 2)
     assert counter.cost.flops - whole.cost.flops / 4 == gap
     assert seen and all(out == places for _, out, places in seen)
     # the constraint did work: a partial-sum gradient came in reduced
