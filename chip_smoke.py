@@ -64,6 +64,17 @@ any failure raises and exits non-zero:
      ``remat=False``: peak memory and device ms of each, beside the
      card's name and power limit.  Fails unless both losses are equal
      and finite and the gradients agree.
+  5b. banded sliding-window attention (``layers.sdpa_banded``, the
+     path of a local layer of gemma3-4b or hymba-1.5b at two windows or
+     more): one gemma3-4b local layer (B 1, S 8192, 8 / 4 heads, hd 256,
+     window 1024) banded against masked ``sdpa``, forward and backward,
+     in bf16 (within 5% of each result's largest magnitude) and f32
+     (2e-5): peak above the inputs and device ms of each, the banded
+     peak below the masked one; then one ``models.loss_fn`` step with
+     gradients of gemma3-4b at full width in bf16 (34 layers, 1 x 8192
+     tokens, remat) banded and with every local layer masked: finite
+     losses within 5%, 2 banded calls per local layer (forward and
+     recompute), peak memory and device ms of each.
 
   6. the cluster runtime: ``repro_torch.cluster.run_cluster`` with the
      training phase's settings at full width in bf16, on simulated H100
@@ -144,7 +155,8 @@ any failure raises and exits non-zero:
   12. the analysis layer: ``python -m repro_torch.launch.dryrun`` for
      microllama-300m's four shapes and the train_4k of phi3-medium-14b
      and grok-1-314b (FSDP) and qwen3-0.6b, falcon-mamba-7b's
-     long_500k (its Mamba step on the model axis's channels), the
+     long_500k (its Mamba step on the model axis's channels),
+     gemma3-4b's prefill_32k and train_4k (banded local layers), the
      prefills that trace a scan or a sharded cache, and one combo of
      each kind torch 2.11 once
      refused (qwen3-0.6b decode_32k, deepseek-moe-16b prefill_32k,
@@ -209,7 +221,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
-from contextlib import contextmanager
+from contextlib import ExitStack, contextmanager
 from pathlib import Path
 
 # read when the CUDA allocator starts, so set before torch touches CUDA
@@ -1378,6 +1390,169 @@ def phase_remat() -> dict:
     return rows
 
 
+# one gemma3-4b local attention layer: (B, S, H, Hk, hd) and its window
+BANDED_SHAPE, BANDED_WINDOW = (1, 8192, 8, 4, 256), 1024
+# banded against masked, of the largest magnitude (outputs and gradients)
+BANDED_TOL = {torch.bfloat16: 5e-2, torch.float32: 2e-5}
+
+
+@contextmanager
+def local_layers_masked():
+    """While active, every local layer attends masked over the whole
+    sequence (``layers.plan_window`` never asks for the banded path)."""
+    from repro_torch.models import layers as L
+
+    plan = L.plan_window
+    L.plan_window = lambda *args: (plan(*args)[0], False)
+    try:
+        yield
+    finally:
+        L.plan_window = plan
+
+
+@contextmanager
+def counting_banded(calls: list):
+    """While active, each ``layers.sdpa_banded`` call appends its query
+    rows to ``calls``."""
+    from repro_torch.models import layers as L
+
+    banded = L.sdpa_banded
+
+    def counted(q, *args, **kwargs):
+        calls.append(q.shape[1])
+        return banded(q, *args, **kwargs)
+
+    L.sdpa_banded = counted
+    try:
+        yield
+    finally:
+        L.sdpa_banded = banded
+
+
+def banded_layer(dtype) -> dict:
+    """``layers.sdpa_banded`` against masked ``layers.sdpa`` on one
+    gemma3-4b local layer (``BANDED_SHAPE``, seeded inputs in ``dtype``),
+    forward and backward (q, k and v's gradients of a seeded cotangent):
+    each variant's peak above its inputs and device ms, and the largest
+    gap of each result over the masked one's largest magnitude."""
+    from repro_torch.models import layers as L
+
+    B, S, H, Hk, hd = BANDED_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def t(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    q, k, v, cot = t(B, S, H, hd), t(B, S, Hk, hd), t(B, S, Hk, hd), \
+        t(B, S, H, hd)
+    attend = {"banded": lambda *x: L.sdpa_banded(*x, window=BANDED_WINDOW),
+              "masked": lambda *x: L.sdpa(*x, causal=True,
+                                          window=BANDED_WINDOW)}
+    rows, outs = {}, {}
+    for name, fn in attend.items():
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+
+        def run():
+            out = fn(*leaves)
+            return (out.detach(), *torch.autograd.grad(out, leaves, cot))
+
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        outs[name] = run()
+        torch.cuda.synchronize()
+        rows[name] = {
+            "above_inputs": torch.cuda.max_memory_allocated() - before,
+            "device_ms": device_ms(run, iters=5, warmup=1)}
+    gaps = {part: ((a.float() - b.float()).abs().max()
+                   / b.float().abs().max()).item()
+            for part, a, b in zip(("out", "dq", "dk", "dv"),
+                                  outs["banded"], outs["masked"])}
+    return {"dtype": str(dtype).replace("torch.", ""), **rows,
+            "max_rel_gap": gaps, "tol": BANDED_TOL[dtype]}
+
+
+BANDED_STEP_SEQ = 8192
+
+
+def phase_banded() -> dict:
+    """Banded sliding-window attention, the path of every local layer of
+    gemma3-4b and hymba-1.5b where S is two windows or more: one
+    gemma3-4b local layer (``banded_layer``) in bf16 and f32, then one
+    ``models.loss_fn`` step with gradients of gemma3-4b at full width in
+    bf16 (34 layers, 1 x ``BANDED_STEP_SEQ`` tokens, remat, the dry
+    run's 512-row logit chunks) through the banded path and with every
+    local layer masked: finite and equal losses, the banded path taken
+    on each of the 29 local layers (forward and recompute), peak memory
+    and device ms of each.  Fails unless banded and masked agree within
+    ``BANDED_TOL`` and the banded layer peaks below the masked one."""
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.core.diloco import value_and_grad
+
+    layers = [banded_layer(dt) for dt in (torch.bfloat16, torch.float32)]
+    for row in layers:
+        emit("banded_layer", shape=list(BANDED_SHAPE), window=BANDED_WINDOW,
+             nvidia_smi=smi_line(), torch=torch.__version__, **row)
+        bad = {p: g for p, g in row["max_rel_gap"].items() if g > row["tol"]}
+        if bad:
+            raise AssertionError(f"banded attention differs from masked in "
+                                 f"{row['dtype']}: {bad}")
+        if row["banded"]["above_inputs"] >= row["masked"]["above_inputs"]:
+            raise AssertionError(f"banded peak not below masked: {row}")
+
+    cfg = get_config("gemma3-4b")
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = models.lm.param_dict(models.init_params(cfg, 0))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, BANDED_STEP_SEQ),
+                                     generator=gen, device="cuda")}
+
+    def step():
+        return value_and_grad(
+            lambda p, b: models.loss_fn(p, b, cfg, logit_chunk=512),
+            params, batch)
+
+    steps, losses, calls = {}, {}, []
+    for name in ("banded", "masked"):
+        with ExitStack() as stack:
+            stack.enter_context(counting_banded(calls) if name == "banded"
+                                else local_layers_masked())
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            loss, _, grads = step()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            del grads
+            if name == "banded":
+                banded_calls = len(calls)
+            ms = device_ms(step, iters=3, warmup=1)
+        losses[name] = float(loss)
+        steps[name] = {"loss": float(loss), "max_memory_allocated": peak,
+                       "above_inputs": peak - before, "device_ms": ms}
+    local = cfg.num_layers - cfg.num_layers // cfg.global_every
+    emit("banded_train_step", arch=cfg.name, dtype=cfg.dtype,
+         tokens=[1, BANDED_STEP_SEQ], local_layers=local,
+         banded_calls_first_step=banded_calls, nvidia_smi=smi_line(),
+         torch=torch.__version__, **steps)
+    if not all(math.isfinite(x) for x in losses.values()):
+        raise AssertionError(f"gemma3-4b step loss not finite: {losses}")
+    if abs(losses["banded"] - losses["masked"]) > \
+            BANDED_TOL[torch.bfloat16] * abs(losses["masked"]):
+        raise AssertionError(f"banded and masked losses differ: {losses}")
+    if banded_calls != 2 * local:
+        raise AssertionError(f"{banded_calls} banded calls in one step, "
+                             f"not 2 x {local} local layers")
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"layer": layers, "step": steps}
+
+
 PROBE_ROWS, PROBE_SEQ = 64, 128
 STATS_NAMES = ("mean_norm2", "sigma2", "ip_var", "orth_var", "b")
 
@@ -2329,11 +2504,15 @@ REFUSED_COMBOS = [("qwen3-0.6b", "decode_32k"),
                   ("deepseek-moe-16b", "prefill_32k"),
                   ("whisper-small", "train_4k"),
                   ("hymba-1.5b", "long_500k")]
+# programs whose local layers attend in blocks (``layers.sdpa_banded``):
+# gemma3-4b's heads split over the model axis, hymba-1.5b's query rows
+# (its prefill_32k is in PREFILL_COMBOS)
+BANDED_COMBOS = [("gemma3-4b", "prefill_32k"), ("gemma3-4b", "train_4k")]
 DRYRUN_COMBOS = [("microllama-300m", s) for s in
                  ("train_4k", "prefill_32k", "decode_32k", "long_500k")] \
     + [("phi3-medium-14b", "train_4k"), ("grok-1-314b", "train_4k"),
        ("qwen3-0.6b", "train_4k"), ("falcon-mamba-7b", "long_500k")] \
-    + PREFILL_COMBOS + REFUSED_COMBOS
+    + BANDED_COMBOS + PREFILL_COMBOS + REFUSED_COMBOS
 # the baseline's dry runs (REPRO_BASELINE=1, written to their own
 # directory), each printed beside the policy's count of the same combo
 # where phase 12 traces it; the two MoE train steps run the dispatch
@@ -2354,8 +2533,8 @@ TRAIN_FLOPS_TORCH_2_13 = {"microllama-300m": 11370729308160.0,
                           "qwen3-0.6b": 32925359538176.0,
                           "phi3-medium-14b": 484211530137600.0,
                           "grok-1-314b": 3476934403031040.0}
-# per-card FLOPs of the former refusals and of the baseline combos on
-# the CPU's torch 2.13 (the same sweeps, the second with
+# per-card FLOPs of the former refusals, the banded programs and the
+# baseline combos on the CPU's torch 2.13 (the same sweeps, the second with
 # REPRO_BASELINE=1), which the card's torch must count too
 FLOPS_TORCH_2_13 = {
     **{(arch, "train_4k"): f for arch, f in TRAIN_FLOPS_TORCH_2_13.items()},
@@ -2363,7 +2542,12 @@ FLOPS_TORCH_2_13 = {
     ("deepseek-moe-16b", "prefill_32k"): 53725798334464.0,
     ("whisper-small", "train_4k"): 8557633732608.0,
     ("hymba-1.5b", "long_500k"): 44416400.0,
-    ("falcon-mamba-7b", "long_500k"): 126337024.0}
+    ("falcon-mamba-7b", "long_500k"): 126337024.0,
+    # the banded local layers: gemma3-4b's prefill is JAX's count
+    # (3.3776e13), its train step and hymba's prefill below JAX's
+    ("gemma3-4b", "prefill_32k"): 33775790587904.0,
+    ("gemma3-4b", "train_4k"): 130416950378496.0,
+    ("hymba-1.5b", "prefill_32k"): 16099429274000.0}
 # the baseline's train steps count the policy's FLOPs, its prefills the
 # policy's plus the head over every position (whisper-small's prefill
 # has no more logits than the policy's)
@@ -2602,6 +2786,7 @@ def main() -> int:
     timed("server_ssm", phase_server, "falcon-mamba-7b", "mamba_scan")
     train_launches = timed("train", phase_train)
     timed("train_remat", phase_remat)
+    timed("banded", phase_banded)
     cluster_launches = timed("cluster", phase_cluster)
     mp_launches, example_flash = timed("cluster_mp", phase_cluster_mp)
     probe_launches = timed("probe", phase_probe)

@@ -10,8 +10,11 @@ package's ``(d_in, d_out)`` orientation, so every projection is
 Hk=kv heads, hd=head_dim, di=Mamba inner width, n=SSM state size,
 cw=conv width.
 
-The port has no banded sliding-window path (``sdpa_banded``): a local
-layer takes masked full attention, which computes the same function.
+A local layer of an interleaved arch (gemma3's 5:1, hymba's 15:1)
+attends in query blocks against the keys of its block and the one
+before (``sdpa_banded``), where JAX's static layer globality lets it
+(``plan_window``); any other windowed layer takes masked full
+attention, which computes the same function at S x S scores.
 """
 from __future__ import annotations
 
@@ -375,9 +378,57 @@ def _softmax(logits):
     return e / torch.sum(e, dim=-1, keepdim=True)
 
 
+def sdpa_banded(q, k, v, *, window: int, q_offset: int = 0, block=None):
+    """Causal sliding-window attention in query blocks, the port of the
+    JAX package's ``sdpa_banded``: each block of ``block`` query rows
+    attends the ``window`` keys before the block and its own, so the
+    scores are (B,Hk,G,n,block+window) instead of (B,Hk,G,S,S).  Keys
+    before position 0 are a zero-padded phantom, masked out; the
+    relative mask is the same for every block.  Exact for any window,
+    and equal to ``sdpa(..., causal=True, window=window)``.
+
+    q: (B,n,H,hd), the query rows q_offset .. q_offset+n-1; k/v:
+    (B,Sk,Hk,hd), the keys from position 0 through q_offset+n-1 at
+    least.  ``block`` defaults to ``window`` (JAX's blocks, two windows
+    of keys per row), and n must then be a multiple of it; a card's
+    shard of the query rows (``policy_sdpa``) passes gcd(n, window), so
+    a shard smaller than a window is one block of its own.  The softmax
+    runs in f32 and its probabilities are cast to q's dtype before the
+    PV product, as in ``sdpa``.  Plain tensors only (``policy_sdpa``
+    runs it on each card's shards)."""
+    B, n, H, hd = q.shape
+    Hk = k.shape[2]
+    block = block or window
+    assert n % block == 0, (n, block)
+    nb, span = n // block, block + window
+    lo = q_offset - window                     # block 0's first key
+
+    def blocks(t):
+        # (B, n + window, Hk, hd) keys from lo -> (B, nb, span, Hk, hd)
+        t = F.pad(t[:, max(lo, 0):q_offset + n],
+                  (0, 0, 0, 0, max(-lo, 0), 0))
+        return t.unfold(1, span, block).permute(0, 1, 4, 2, 3)
+
+    qb = q.reshape(B, nb, block, Hk, H // Hk, hd)
+    logits = torch.einsum("bnqkgh,bnskh->bnkgqs", qb, blocks(k)).float()
+    logits = logits * (1.0 / math.sqrt(hd))
+    dev = q.device
+    tq = torch.arange(block, device=dev)[:, None]
+    tk = torch.arange(span, device=dev)[None, :]
+    rel = tk - window - tq                     # key minus query position
+    kpos = lo + block * torch.arange(nb, device=dev)[:, None, None] + tk
+    mask = (rel <= 0) & (rel > -window) & (kpos >= 0)    # (nb,block,span)
+    logits = logits.masked_fill(~mask[None, :, None, None], NEG_INF)
+    probs = _softmax(logits).to(q.dtype)
+    out = torch.einsum("bnkgqs,bnskh->bnqkgh", probs, blocks(v))
+    return out.reshape(B, n, H, hd)
+
+
 def attention(p, x, cfg: ModelConfig, *, causal=True, window=None,
-              positions=None, use_kernel=False):
-    """Full-sequence attention sublayer (no cache): x (B,S,d) -> (B,S,d)."""
+              positions=None, use_kernel=False, banded=False):
+    """Full-sequence attention sublayer (no cache): x (B,S,d) -> (B,S,d).
+    ``banded=True`` (a local layer, ``plan_window``) attends in blocks
+    (``sdpa_banded``) where the kernel is not asked for."""
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
     q, k, v = qkv_project(p, x, cfg, positions)
@@ -385,16 +436,18 @@ def attention(p, x, cfg: ModelConfig, *, causal=True, window=None,
         from repro_torch.kernels.flash_attention.ops import flash_attention
         out = flash_attention(q, k, v, causal=causal, window=window)
     else:
-        out = policy_sdpa(q, k, v, cfg, causal=causal, window=window)
+        out = policy_sdpa(q, k, v, cfg, causal=causal, window=window,
+                          banded=banded)
     return out_project(out, p["o"])
 
 
-def policy_sdpa(q, k, v, cfg: ModelConfig, *, causal: bool, window=None):
-    """``sdpa`` laid out so that each card computes only its share of
-    the S x S scores, as the JAX package's sharding policy constrains it
-    and as GSPMD lays it out with no policy (the baseline, whisper's
-    decode step) from the projections' sharded outputs, the batch over
-    the data axes (``sharding.pin``):
+def policy_sdpa(q, k, v, cfg: ModelConfig, *, causal: bool, window=None,
+                banded: bool = False):
+    """``sdpa`` (``sdpa_banded`` with ``banded``) laid out so that each
+    card computes only its share of the scores, as the JAX package's
+    sharding policy constrains it and as GSPMD lays it out with no
+    policy (the baseline, whisper's decode step) from the projections'
+    sharded outputs, the batch over the data axes (``sharding.pin``):
 
       * heads that split evenly over the model axis are sharded.  Where
         the kv heads do not (4 kv heads over 8 cards), k and v are first
@@ -403,6 +456,8 @@ def policy_sdpa(q, k, v, cfg: ModelConfig, *, causal: bool, window=None):
       * otherwise the query sequence is sharded (context parallelism, as
         the JAX package does for fewer heads than the axis: sharding
         would split the head_dim contraction and reduce the scores).
+        A card's banded rows attend in blocks of their own, against
+        the keys of the window before them.
 
     Either way a card's scores need nothing of the other cards, so they
     run on its own shards (``sharding.on_shards``: DTensor's einsum path
@@ -411,33 +466,27 @@ def policy_sdpa(q, k, v, cfg: ModelConfig, *, causal: bool, window=None):
     torch 2.11); the output stays laid out so, and ``out_project`` moves
     the merged heads to the o weight's rows.  Fewer query rows than
     model cards (a decode step's token), plain tensors and a mesh
-    without a model axis run ``sdpa`` on the layout they come in."""
+    without a model axis run on the layout they come in."""
+    def attend(q, k, v, q_offset=0):
+        if banded:
+            return sdpa_banded(q, k, v, window=window, q_offset=q_offset,
+                               block=math.gcd(q.shape[1], window))
+        return sdpa(q, k, v, causal=causal, window=window, q_offset=q_offset)
+
     m = model_axis_size(q)
     H, Hk = q.shape[2], k.shape[2]
     if not m or (H % m and q.shape[1] < m):
-        return sdpa(q, k, v, causal=causal, window=window)
+        return attend(q, k, v)
     if H % m:
-        return _sdpa_rows(pin(q, "batch", "model", None, None),
-                          pin(k, "batch", None, None, None),
-                          pin(v, "batch", None, None, None),
-                          causal=causal, window=window)
+        q = pin(q, "batch", "model", None, None)
+        off = shard_offset(q, 1)
+        return on_shards(lambda q, k, v: attend(q, k, v, q_offset=off), q,
+                         *(pin(t, "batch", None, None, None) for t in (k, v)))
     if Hk % m:
         k, v = (repeat_kv(pin(t, "batch", None, None, None), H // Hk)
                 for t in (k, v))
     heads = ("batch", None, "model", None)
-    return on_shards(lambda q, k, v: sdpa(q, k, v, causal=causal,
-                                          window=window),
-                     *(pin(t, *heads) for t in (q, k, v)))
-
-
-def _sdpa_rows(q, k, v, *, causal: bool, window=None):
-    """``sdpa`` on each card's own query rows (q split along S, k and v
-    whole along it), the causal mask offset by the rows' first
-    position."""
-    off = shard_offset(q, 1)
-    return on_shards(lambda q, k, v: sdpa(q, k, v, causal=causal,
-                                          window=window, q_offset=off),
-                     q, k, v)
+    return on_shards(attend, *(pin(t, *heads) for t in (q, k, v)))
 
 
 def model_axis_size(x) -> int:
@@ -458,13 +507,35 @@ def repeat_kv(t, g: int):
     return whole_groups_in_grad(rep, 2, Hk)
 
 
-def plan_window(cfg: ModelConfig, is_global: bool):
-    """The attention window of one layer: None for a global layer (or an
-    arch without sliding windows), else ``cfg.sliding_window``.  Layers
-    run in a Python loop, so ``is_global`` is always a plain bool."""
-    if is_global or cfg.sliding_window is None:
+def layer_groups(cfg: ModelConfig):
+    """(groups, layers per group, tail layers) of a local/global
+    interleaved arch (gemma3 5:1), as JAX's ``lm._grouped``; None for a
+    uniform one.  JAX runs such an arch's groups in a scan whose body
+    unrolls the layers, and its tail layers one by one, each with a
+    static globality, which lets their local layers attend in blocks
+    (under remat JAX's ``jax.checkpoint`` of a tail layer traces its
+    flag, so there JAX's tail attends masked; the port's is banded)."""
+    if cfg.global_every is None or cfg.sliding_window is None:
         return None
-    return cfg.sliding_window
+    g = cfg.global_every
+    ng = cfg.num_layers // g
+    if ng == 0:
+        return None
+    return ng, g, cfg.num_layers - ng * g
+
+
+def plan_window(cfg: ModelConfig, is_global: bool, S: int):
+    """(window, banded) of one layer over S positions: window None for
+    a global layer (or an arch without sliding windows), else
+    ``cfg.sliding_window``; banded (``sdpa_banded``) for a local layer
+    of an interleaved arch (``layer_groups``) where S is a multiple of
+    the window and at least two of them, JAX's rule.  A windowed arch
+    that JAX scans with a traced globality flag takes masked full
+    attention, as JAX's does."""
+    if is_global or cfg.sliding_window is None:
+        return None, False
+    w = cfg.sliding_window
+    return w, (layer_groups(cfg) is not None and S % w == 0 and S // w >= 2)
 
 
 def _rope_pos_for_decode(pos):

@@ -338,10 +338,11 @@ def _layer_apply(layer: DecoderLayer, x, cfg: ModelConfig, is_global: bool,
         h = L.rms_norm(x, layer.norm, cfg.rms_eps)
         return x + L.mamba_forward(layer.mamba, h, cfg,
                                    use_kernel=use_kernels), None
+    window, banded = L.plan_window(cfg, is_global, x.shape[1])
     h = L.rms_norm(x, layer.attn_norm, cfg.rms_eps)
-    a = L.attention(layer.attn, h, cfg, causal=True,
-                    window=L.plan_window(cfg, is_global),
-                    positions=positions, use_kernel=use_kernels)
+    a = L.attention(layer.attn, h, cfg, causal=True, window=window,
+                    positions=positions, use_kernel=use_kernels,
+                    banded=banded)
     if cfg.hybrid:
         m = L.mamba_forward(layer.mamba, h, cfg, use_kernel=use_kernels)
         a = 0.5 * (a + m)          # Hymba's parallel-head mean fusion
@@ -357,25 +358,12 @@ def _layer_apply(layer: DecoderLayer, x, cfg: ModelConfig, is_global: bool,
 # forward / prefill
 # --------------------------------------------------------------------
 
-def _grouped(cfg: ModelConfig):
-    """(groups, layers per group, tail layers) of a local/global
-    interleaved arch (gemma3 5:1), as JAX's ``_grouped``; None for a
-    uniform one."""
-    if cfg.global_every is None or cfg.sliding_window is None:
-        return None
-    g = cfg.global_every
-    ng = cfg.num_layers // g
-    if ng == 0:
-        return None
-    return ng, g, cfg.num_layers - ng * g
-
-
 def remat_spans(cfg: ModelConfig) -> List[range]:
     """The layers that each checkpoint of ``run_layers`` covers, where
     JAX's ``_run_layers`` puts ``jax.checkpoint``: one layer each, or
     for an interleaved arch one group of ``global_every`` layers each,
     then one per tail layer."""
-    grp = _grouped(cfg)
+    grp = L.layer_groups(cfg)
     if grp is None:
         return [range(i, i + 1) for i in range(cfg.num_layers)]
     ng, g, _ = grp
@@ -586,13 +574,14 @@ def prefill(params: DecoderLM, tokens, cfg: ModelConfig, cache_len: int, *,
         if cfg.arch_type == "ssm":
             x = x + mamba(layer, L.rms_norm(x, layer.norm, cfg.rms_eps))
             continue
-        window = L.plan_window(cfg, g)
+        window, banded = L.plan_window(cfg, g, S_total)
         h = L.rms_norm(x, layer.attn_norm, cfg.rms_eps)
         q, k, v = L.qkv_project(layer.attn, h, cfg, positions)
         if use_kernels:
             a = flash_ops.flash_attention(q, k, v, causal=True, window=window)
         else:
-            a = L.policy_sdpa(q, k, v, cfg, causal=True, window=window)
+            a = L.policy_sdpa(q, k, v, cfg, causal=True, window=window,
+                              banded=banded)
         a = L.out_project(a, layer.attn["o"])
         cache.setdefault("k", []).append(_ring_scatter(k, S_total, cache_len))
         cache.setdefault("v", []).append(_ring_scatter(v, S_total, cache_len))

@@ -96,27 +96,32 @@ LOWER = {"train": D.lower_train, "prefill": D.lower_prefill,
          "decode": D.lower_decode}
 
 
-def flops(cfg, kind, shape, batch):
+def flops(cfg, kind, shape, batch, seq=64):
     n = shape[0] * shape[1]
     mesh = jax.make_mesh(tuple(shape), ("data", "model"),
                          devices=jax.devices()[:n],
                          axis_types=(AxisType.Auto,) * 2)
-    low = LOWER[kind](cfg, InputShape("x", 64, batch, kind), mesh)
+    low = LOWER[kind](cfg, InputShape("x", seq, batch, kind), mesh)
     return hlo_analysis.analyze(low.compile().as_text())["flops"]
 
 
-out = {}
+out, ones = {}, {}
 cases, baseline = json.loads(sys.argv[1]), json.loads(sys.argv[2])
-for arch, h, hk, kind, shape, batch, vocab in cases:
+for arch, h, hk, kind, shape, batch, vocab, *more in cases:
+    seq, over = (more + [64, {}][len(more):])      # optional: S, fields
     cfg = dataclasses.replace(reduced(get_config(arch)), num_heads=h,
-                              num_kv_heads=hk, head_dim=64)
+                              num_kv_heads=hk, head_dim=64, **over)
     if vocab:
         cfg = dataclasses.replace(cfg, vocab_size=vocab)
-    one = flops(cfg, kind, (1, 1), batch)
+    at = (cfg, kind, batch, seq)
+    one = ones[at] = ones.get(at) or flops(cfg, kind, (1, 1), batch, seq)
     key = (f"{arch}/{h}/{hk}/{kind}/{shape[0]}x{shape[1]}"
            + ("" if batch == 8 else f"/b{batch}")
-           + (f"/v{vocab}" if vocab else ""))
-    out[key] = flops(cfg, kind, shape, batch) * shape[0] * shape[1] / one
+           + (f"/v{vocab}" if vocab else "")
+           + ("" if seq == 64 else f"/s{seq}")
+           + "".join(f"/{k}{v}" for k, v in sorted(over.items())))
+    out[key] = flops(cfg, kind, shape, batch, seq) * shape[0] * shape[1] / one
+    out[key + "/one"] = one
     if batch == 8 and [arch, h, hk, kind, shape] in baseline:
         D.BASELINE = True
         # constraints change no count on one card, but the baseline's
@@ -130,10 +135,14 @@ print(json.dumps(out))
 """
 
 
-def key(arch, h, hk, kind, shape, batch=8, vocab=None):
+def key(arch, h, hk, kind, shape, batch=8, vocab=None, seq=64, over=None):
+    """The JAX script's key of a case; ``seq`` the sequence length,
+    ``over`` the config fields replaced beside the heads."""
     return (f"{arch}/{h}/{hk}/{kind}/{shape[0]}x{shape[1]}"
             + ("" if batch == 8 else f"/b{batch}")
-            + (f"/v{vocab}" if vocab else ""))
+            + (f"/v{vocab}" if vocab else "")
+            + ("" if seq == 64 else f"/s{seq}")
+            + "".join(f"/{k}{v}" for k, v in sorted((over or {}).items())))
 
 
 def case_id(case):
@@ -148,17 +157,23 @@ class JaxRatios:
     """JAX's ratios from one subprocess, started on first use and read
     when a test first needs them."""
 
-    def __init__(self):
+    def __init__(self, as_lists=None, base=()):
+        """``as_lists``: the script's cases ([arch, heads, kv heads,
+        kind, mesh, batch, vocab] and optionally S and a dict of config
+        fields), by default this module's; ``base``: the cases also
+        counted in the baseline mode."""
         env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                    JAX_PLATFORMS="cpu")
-        as_lists = ([[a, h, hk, k, list(s), 8, None]
-                     for a, h, hk, k, s in CASES]
-                    + [[a, h, hk, k, list(s), b, v]
-                       for a, h, hk, k, s, b, v in DECODE_B1_CASES])
-        base = [[a, h, hk, k, list(s)] for a, h, hk, k, s in BASELINE_CASES]
+        if as_lists is None:
+            as_lists = ([[a, h, hk, k, list(s), 8, None]
+                         for a, h, hk, k, s in CASES]
+                        + [[a, h, hk, k, list(s), b, v]
+                           for a, h, hk, k, s, b, v in DECODE_B1_CASES])
+            base = [[a, h, hk, k, list(s)]
+                    for a, h, hk, k, s in BASELINE_CASES]
         self.proc = subprocess.Popen(
             [sys.executable, "-c", JAX_SCRIPT, json.dumps(as_lists),
-             json.dumps(base)], cwd=ROOT, env=env, text=True,
+             json.dumps(list(base))], cwd=ROOT, env=env, text=True,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE)
         self.ratios = None
 
@@ -191,7 +206,8 @@ def cfg_of(arch, h, hk, vocab=None):
     return dataclasses.replace(cfg, vocab_size=vocab) if vocab else cfg
 
 
-def count(cfg, kind, shape, monkeypatch=None, baseline=False, batch=8):
+def count(cfg, kind, shape, monkeypatch=None, baseline=False, batch=8,
+          seq=64):
     """The port's per-card OpCounter of ``kind``'s dry-run program."""
     if monkeypatch is not None:
         monkeypatch.setattr(dryrun, "BASELINE", baseline)
@@ -199,7 +215,7 @@ def count(cfg, kind, shape, monkeypatch=None, baseline=False, batch=8):
         mesh = init_device_mesh("cuda", shape,
                                 mesh_dim_names=("data", "model"))
         step, args, policy = dryrun.build_program(
-            cfg, InputShape("x", 64, batch, kind), mesh)
+            cfg, InputShape("x", seq, batch, kind), mesh)
         counter = op_analysis.OpCounter()
         dryrun.trace(counter, step, args, policy)
     return counter
