@@ -18,20 +18,26 @@ start from the same ``x_start`` tensors; every step builds new tensors,
 so ``inner`` never writes ``tr.params`` (the pseudo-gradient and the
 merge read it afterwards).
 
-Where the port adds to the JAX package: on a CUDA device,
-:class:`PhaseClock` records CUDA events around each round's phases
-(``inner``, ``stats_grads``, ``stats_reduce``, ``outer``, ``merge``) and
-``History.phase_ms`` keeps their device times in ms per round.  The
-per-sample probe runs in row chunks where its (B, D) f32 matrix does
-not fit the card (``batching.per_sample_probe``); ``History.stats_probe``
-records each round's probes as (B, rows held at once, chunks per
-sweep).
+Where the port adds to the JAX package: :class:`PhaseClock` records
+each round's spans: ``inner`` (the M workers' H steps), inside it
+``forward``, ``backward`` and ``adamw`` of every step (``diloco.
+step_spans``); ``probe`` (the exact batch test: the per-sample probe or
+the microbatch estimator, and the decision), inside it ``stats_grads``
+and ``stats_reduce``; ``outer``; ``merge``.  Each span is a host range
+on the profiler's clock and is counted with its parent; on a CUDA
+device it also takes CUDA events and the caching allocator's counters,
+and ``History.phase_ms`` keeps the device times in ms per round (with
+the counters, :class:`PhaseRecord`).  The per-sample probe runs in row
+chunks where its (B, D) f32 matrix does not fit the card
+(``batching.per_sample_probe``); ``History.stats_probe`` records each
+round's probes as (B, rows held at once, chunks per sweep).
 """
 from __future__ import annotations
 
 import time
 from contextlib import contextmanager
 from dataclasses import dataclass, field
+from functools import partial
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
@@ -41,7 +47,8 @@ from repro_torch.configs.base import AdLoCoConfig
 from repro_torch.core import batching
 from repro_torch.core.comms import CommsMeter, param_bytes
 from repro_torch.core.diloco import (StepCache, make_outer_step,
-                                     reshape_for_plan, stack_params)
+                                     reshape_for_plan, stack_params,
+                                     step_spans)
 from repro_torch.core.mit import (TrainerPoolState, TrainerState, check_merge,
                                   consolidate, do_merge)
 from repro_torch.core.switch import ExecutionPlan, plan_execution
@@ -67,7 +74,8 @@ class History:
     # simulated seconds (``repro_torch.cluster`` runtime only; empty for
     # the host loop, which has no cluster clock)
     sim_time: List[float] = field(default_factory=list)
-    # device ms per phase per round (CUDA events; empty dicts on the CPU)
+    # device ms per phase per round (CUDA events; empty on the CPU), with
+    # the spans' counters (``PhaseRecord``)
     phase_ms: List[Dict[str, float]] = field(default_factory=list)
     # per round, each per-sample probe run as [B, rows, chunks]
     # (rows == B, chunks == 1: one pass)
@@ -101,34 +109,106 @@ class RoundOutput:
     predicted: bool = False
 
 
-class PhaseClock:
-    """Device time of named phases from CUDA events, summed by name
-    until :meth:`collect`.  Records nothing for a CPU device."""
+class PhaseRecord(dict):
+    """What :meth:`PhaseClock.collect` returns: device ms per span name
+    (the items; none on the CPU) and the same spans' counters.
+
+    ``counts``: spans closed, by name.  ``parents``: the span open
+    around each name (None at the top).  On a CUDA device also
+    ``alloc_retries``: the caching allocator's ``num_alloc_retries``
+    during each name's spans (a parent's include its children's);
+    ``resident_bytes``: the most ``memory_allocated()`` read at the
+    start of an inner step (``PhaseClock.note_resident``);
+    ``peak_bytes`` and ``peak_span``: the highest allocated peak
+    reached, and the innermost span open while it was reached (None:
+    no span), where the peak rose since the last collect (else 0 and
+    None)."""
 
     def __init__(self):
-        self._spans: list = []
+        super().__init__()
+        self.counts: Dict[str, int] = {}
+        self.parents: Dict[str, Optional[str]] = {}
+        self.alloc_retries: Dict[str, int] = {}
+        self.resident_bytes = 0
+        self.peak_bytes = 0
+        self.peak_span: Optional[str] = None
+
+
+class PhaseClock:
+    """The port's span recorder: named spans, each inside the span open
+    around it, summed by name until :meth:`collect`.
+
+    Every span opens a host range ``RANGE_PREFIX + name`` on the
+    profiler's clock, so a traced window holds the spans beside the ops
+    and kernels.  The range is not a user annotation
+    (``record_function``), which the profiler would mirror on the device
+    timeline as an interval as long as the span.  On a CUDA device a
+    span also records CUDA events (its device time) and reads the
+    caching allocator's counters at its start and end, on the host and
+    without a synchronize (``memory_stats_as_nested_dict``: the flat
+    ``memory_stats`` is slower to build).  Nothing here resets the
+    allocator's peak.  On the CPU only counts and parents."""
+
+    RANGE_PREFIX = "phase/"
+
+    def __init__(self):
+        self._events: list = []                 # (name, start, end)
+        self._open: List[str] = []              # open spans, innermost last
+        self._last_peak = 0
+        self._rec = PhaseRecord()
+
+    def _boundary(self, device: torch.device) -> int:
+        """The allocator's retries so far.  A change of its peak since
+        the previous boundary is put down to the innermost open span."""
+        st = torch.cuda.memory_stats_as_nested_dict(device)
+        peak = st["allocated_bytes"]["all"]["peak"]
+        if peak != self._last_peak:
+            self._last_peak = peak
+            if peak > self._rec.peak_bytes:
+                self._rec.peak_bytes = peak
+                self._rec.peak_span = self._open[-1] if self._open else None
+        return st["num_alloc_retries"]
 
     @contextmanager
     def span(self, name: str, device: torch.device):
-        if device.type != "cuda":
-            yield
-            return
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        try:
-            yield
-        finally:
-            end.record()
-            self._spans.append((name, start, end))
+        rec = self._rec
+        rec.parents[name] = self._open[-1] if self._open else None
+        cuda = device.type == "cuda"
+        with torch._C._profiler._RecordFunctionFast(self.RANGE_PREFIX + name):
+            if cuda:
+                retries = self._boundary(device)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+            self._open.append(name)
+            try:
+                yield
+            finally:
+                if cuda:
+                    end.record()
+                    self._events.append((name, start, end))
+                    rec.alloc_retries[name] = (
+                        rec.alloc_retries.get(name, 0)
+                        + self._boundary(device) - retries)
+                self._open.pop()
+                rec.counts[name] = rec.counts.get(name, 0) + 1
 
-    def collect(self) -> Dict[str, float]:
-        out: Dict[str, float] = {}
-        for name, start, end in self._spans:
+    def note_resident(self, device: torch.device) -> None:
+        """Call at the start of an inner step: ``memory_allocated()``
+        there is the state held across steps."""
+        if device.type == "cuda":
+            st = torch.cuda.memory_stats_as_nested_dict(device)
+            self._rec.resident_bytes = max(
+                self._rec.resident_bytes,
+                st["allocated_bytes"]["all"]["current"])
+
+    def collect(self) -> PhaseRecord:
+        rec, self._rec = self._rec, PhaseRecord()
+        for name, start, end in self._events:
             end.synchronize()
-            out[name] = out.get(name, 0.0) + start.elapsed_time(end)
-        self._spans.clear()
-        return out
+            rec[name] = rec.get(name, 0.0) + start.elapsed_time(end)
+        self._events.clear()
+        return rec
 
 
 def _device(params) -> torch.device:
@@ -319,7 +399,8 @@ class TrainerRound:
         keep_grads = acfg.adaptive and (
             stats_reduce is not None
             or (acfg.stats_estimator == "microbatch" and len(idxs) >= 2))
-        with self.clock.span("inner", dev):
+        span = partial(self.clock.span, device=dev)
+        with span("inner"), step_spans(span):
             for m in idxs:
                 wp = (worker_starts[m] if worker_starts is not None
                       else x_start)
@@ -332,6 +413,7 @@ class TrainerRound:
                 for _ in range(H):
                     batch = stream.next_batch(plan.effective_batch)
                     batch = reshape_for_plan(batch, plan)
+                    self.clock.note_resident(dev)
                     wp, opt_m, loss, grads = step_fn(wp, opt_m, batch)
                     if not keep_grads:
                         grads = None    # freed before the next step
@@ -350,52 +432,58 @@ class TrainerRound:
                 round_i, tr.requested_batch)
             predicted = True
         elif acfg.adaptive:
-            n = self._count_params(x_start)
-            if stats_reduce is not None:
-                # each worker's microbatch-mean grad is one shard of the
-                # exact two-phase composition across processes
-                G_local = batching.flatten_grads(stack_params(worker_grads))
-                if defer_stats:
-                    st = None
-                    stats_request = {"phase1": self.protocol.begin(G_local),
-                                     "G_local": G_local,
-                                     "micro": plan.effective_batch}
+            # the exact batch test: its statistics and the decision
+            with span("probe"):
+                n = self._count_params(x_start)
+                if stats_reduce is not None:
+                    # each worker's microbatch-mean grad is one shard of
+                    # the exact two-phase composition across processes
+                    G_local = batching.flatten_grads(
+                        stack_params(worker_grads))
+                    if defer_stats:
+                        st = None
+                        stats_request = {
+                            "phase1": self.protocol.begin(G_local),
+                            "G_local": G_local,
+                            "micro": plan.effective_batch}
+                    else:
+                        st = self.protocol.reduce(
+                            G_local, stats_reduce,
+                            micro_size=plan.effective_batch)
+                elif (acfg.stats_estimator == "microbatch"
+                      and len(idxs) >= 2):
+                    # free distributed estimator: Var over the M workers'
+                    # last microbatch-mean grads, times m, estimates
+                    # sigma^2
+                    with span("stats_grads"):
+                        G = batching.flatten_grads(
+                            stack_params(worker_grads))
+                    with span("stats_reduce"):
+                        st = batching.rescale_microbatch(
+                            batching.stats_from_matrix(
+                                G, use_kernel=acfg.stats_use_kernel),
+                            plan.effective_batch)
+                    del G
                 else:
-                    st = self.protocol.reduce(
-                        G_local, stats_reduce,
-                        micro_size=plan.effective_batch)
-            elif acfg.stats_estimator == "microbatch" and len(idxs) >= 2:
-                # free distributed estimator: Var over the M workers'
-                # last microbatch-mean grads, times m, estimates sigma^2
-                with self.clock.span("stats_grads", dev):
-                    G = batching.flatten_grads(stack_params(worker_grads))
-                with self.clock.span("stats_reduce", dev):
-                    st = batching.rescale_microbatch(
-                        batching.stats_from_matrix(
-                            G, use_kernel=acfg.stats_use_kernel),
-                        plan.effective_batch)
-                del G
-            else:
-                # per-sample stats on a probe of the current batch size;
-                # stats_probe_size is only a memory cap
-                probe_b = max(4, min(acfg.stats_probe_size,
-                                     plan.effective_batch))
-                probe = tr.streams[0].next_batch(probe_b)
-                res = batching.per_sample_probe(
-                    self.loss_fn, worker_params[idxs[0]], probe,
-                    use_kernel=acfg.stats_use_kernel,
-                    span=lambda name: self.clock.span(name, dev))
-                st = res.stats
-                self.probes.append([probe_b, res.rows, res.chunks])
-            if defer_stats:
-                if stats_request is None:
-                    stats_request = {"st": st}
-            else:
-                tr.requested_batch = self.protocol.decide(
-                    st, tr.requested_batch)
-                if acfg.k_correct > 1 and round_i is not None:
-                    self._predictor_for(tr.tid).observe(
-                        round_i, tr.requested_batch)
+                    # per-sample stats on a probe of the current batch
+                    # size; stats_probe_size is only a memory cap
+                    probe_b = max(4, min(acfg.stats_probe_size,
+                                         plan.effective_batch))
+                    probe = tr.streams[0].next_batch(probe_b)
+                    res = batching.per_sample_probe(
+                        self.loss_fn, worker_params[idxs[0]], probe,
+                        use_kernel=acfg.stats_use_kernel, span=span)
+                    st = res.stats
+                    self.probes.append([probe_b, res.rows, res.chunks])
+                if defer_stats:
+                    if stats_request is None:
+                        stats_request = {"st": st}
+                else:
+                    tr.requested_batch = self.protocol.decide(
+                        st, tr.requested_batch)
+                    if acfg.k_correct > 1 and round_i is not None:
+                        self._predictor_for(tr.tid).observe(
+                            round_i, tr.requested_batch)
             stats_bytes = self.protocol.payload_bytes(n)
 
         spw = plan.effective_batch * H

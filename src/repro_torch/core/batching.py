@@ -278,8 +278,10 @@ def per_sample_probe(loss_fn: Callable, params, batch, *,
     probe's large allocations cannot be split by the backward passes'
     cached blocks.
     ``span(name)`` (a context manager factory, e.g. the round's
-    ``PhaseClock``) wraps gradient work as ``stats_grads`` and the
-    reductions as ``stats_reduce``."""
+    ``PhaseClock``, which ``TrainerRound`` opens inside its ``probe``
+    span) wraps gradient work as ``stats_grads`` and the reductions as
+    ``stats_reduce``.  The batch-1 passes call ``value_and_grad``
+    without it, so they open no ``forward`` or ``backward``."""
     span = span or (lambda name: nullcontext())
     B = next(iter(batch.values())).shape[0]
     D = sum(p.numel() for p in params.values())

@@ -6,9 +6,15 @@ Parameters, gradients and optimizer states are ``{name: tensor}``
 dicts.  Every step returns new tensors and leaves its inputs as they
 were (JAX arrays are immutable, and the orchestrator starts all M
 workers and the outer step from the same ``x_start``).
+
+Where the port adds to the JAX package: an inner step called inside
+``step_spans(span)`` opens ``forward``, ``backward`` and ``adamw``
+through ``span(name)`` (``TrainerRound`` passes its ``PhaseClock``'s).
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Callable, Dict, List, Tuple
 
 import torch
@@ -19,16 +25,44 @@ from repro_torch.core.switch import ExecutionPlan
 Params = Dict[str, torch.Tensor]
 
 
-def value_and_grad(loss_fn: Callable, params: Params, batch):
+def _no_span(name: str):
+    return contextlib.nullcontext()
+
+
+# Set by ``step_spans`` for the inner steps that run inside it.
+_STEP_SPAN = contextvars.ContextVar("inner_step_span", default=_no_span)
+
+
+@contextlib.contextmanager
+def step_spans(span: Callable):
+    """Within it, every step that ``make_inner_step`` built opens its
+    spans through ``span(name)``, a context manager factory.  A scope
+    rather than an argument, so that ``make_inner_step(loss_fn,
+    inner_opt, accum_steps)`` keeps the signature that code wrapping it
+    relies on (``bench/tests/test_bench_faults.py``)."""
+    tok = _STEP_SPAN.set(span)
+    try:
+        yield
+    finally:
+        _STEP_SPAN.reset(tok)
+
+
+def value_and_grad(loss_fn: Callable, params: Params, batch,
+                   span: Callable = _no_span):
     """``loss_fn(params, batch) -> (loss, aux)`` and its gradient with
     respect to every tensor of ``params`` (the JAX package's
     ``jax.value_and_grad(..., has_aux=True)``).  Returns (loss, aux,
-    grads), detached; ``params`` is not modified."""
+    grads), detached; ``params`` is not modified.  ``span(name)``, a
+    context manager factory (none by default), wraps the loss as
+    ``forward`` and the gradient (with its remat recompute) as
+    ``backward``."""
     leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
     with torch.enable_grad():
-        loss, aux = loss_fn(leaves, batch)
-        grads = torch.autograd.grad(loss, list(leaves.values()),
-                                    allow_unused=True)
+        with span("forward"):
+            loss, aux = loss_fn(leaves, batch)
+        with span("backward"):
+            grads = torch.autograd.grad(loss, list(leaves.values()),
+                                        allow_unused=True)
     grads = {k: (torch.zeros_like(v) if g is None else g)
              for (k, v), g in zip(leaves.items(), grads)}
     return loss.detach(), aux, grads
@@ -42,16 +76,26 @@ def make_inner_step(loss_fn: Callable, inner_opt: optim.Optimizer,
     micro-batches run one after another.  ``grads`` is the mean gradient
     the update used (the microbatch stats estimator reuses it).  With
     accum_steps == 1 there is no f32 accumulator: grads stay in the
-    param dtype, as in JAX."""
+    param dtype, as in JAX.  Inside ``step_spans(span)`` a step opens
+    ``forward`` and ``backward`` around each micro-batch's
+    ``value_and_grad`` and ``adamw`` around the update and its
+    application; elsewhere it opens none."""
+
+    def update(span, grads, opt_state, params):
+        with span("adamw"):
+            updates, opt_state = inner_opt.update(grads, opt_state, params)
+            return (optim.apply_updates(params, updates, consume=True),
+                    opt_state)
 
     def step_noaccum(params, opt_state, batch):
+        span = _STEP_SPAN.get()
         mb = {k: v[0] for k, v in batch.items()}
-        loss, _, grads = value_and_grad(loss_fn, params, mb)
-        updates, opt_state = inner_opt.update(grads, opt_state, params)
-        return (optim.apply_updates(params, updates, consume=True),
-                opt_state, loss, grads)
+        loss, _, grads = value_and_grad(loss_fn, params, mb, span)
+        params, opt_state = update(span, grads, opt_state, params)
+        return params, opt_state, loss, grads
 
     def step(params, opt_state, batch):
+        span = _STEP_SPAN.get()
         # zeros_like keeps a sharded (DTensor) parameter's layout
         g_sum = {k: torch.zeros_like(p, dtype=torch.float32)
                  for k, p in params.items()}
@@ -59,15 +103,14 @@ def make_inner_step(loss_fn: Callable, inner_opt: optim.Optimizer,
                             device=next(iter(params.values())).device)
         for a in range(accum_steps):
             mb = {k: v[a] for k, v in batch.items()}
-            loss, _, g = value_and_grad(loss_fn, params, mb)
+            loss, _, g = value_and_grad(loss_fn, params, mb, span)
             g_sum = {k: g_sum[k] + g[k].to(torch.float32) for k in g_sum}
             l_sum = l_sum + loss
         inv = 1.0 / accum_steps
         grads = {k: g * inv for k, g in g_sum.items()}
         del g_sum                   # freed before the update (memory)
-        updates, opt_state = inner_opt.update(grads, opt_state, params)
-        return (optim.apply_updates(params, updates, consume=True),
-                opt_state, l_sum * inv, grads)
+        params, opt_state = update(span, grads, opt_state, params)
+        return params, opt_state, l_sum * inv, grads
 
     return step_noaccum if accum_steps == 1 else step
 
