@@ -22,6 +22,15 @@ any failure raises and exits non-zero:
      count it has).  Each flash row names the path that ran: ``tc``
      (bf16, hd % 16 == 0: wgmma) or ``fma`` (f32 and other bf16 head
      dims).
+  2b. flash attention's training route at the benchmark's training
+     shapes (stablelm-1.6b (8, 2048, 32, 32, 64), phi3-medium-14b (4,
+     2048, 40, 10, 128)): the autograd wrapper the main path runs (the
+     forward that saves each row's log-sum-exp, the backward kernels)
+     against the plain path's autograd, both against f32
+     (``tests/flash_train_card.check_grads``), then kernel / bound /
+     plain / library device ms of each binding (the library's is
+     ``F.scaled_dot_product_attention``'s, a yardstick the port never
+     calls); every backward kernel's SASS must hold HGMMA.
   3. the main path: ``serve.generate`` on microllama-300m at full width
      in bf16 (seeded random weights), 4 prompts of 512 tokens, 32 greedy
      tokens; the flash kernel must launch once per layer, every launch on
@@ -55,7 +64,9 @@ any failure raises and exits non-zero:
      time of each phase (``History.phase_ms``, CUDA events).  Fails
      unless the losses are finite, the requested batches never shrink,
      each gradstats kernel launched once per stats reduction, the flash
-     kernel never launched, and the kernel and plain statistics of one
+     serving kernel never launched and every attention call took the
+     training route (``flash_train_*``: forward and remat recompute,
+     backward, none plain), and the kernel and plain statistics of one
      stats round's G agree.  Training rematerialises each layer in the
      backward (``models.loss_fn``'s default, as the JAX loss).  Then one
      MicroLlama-300M inner step at full width in bf16 on 8 x 1024
@@ -150,7 +161,8 @@ any failure raises and exits non-zero:
      ``launch.train`` cut to 8 of its 32 layers (text-only, as the JAX
      launcher; in phase 8's list) and one inner step of the same cut
      model on a batch with a 576-token prefix.  Finite losses, params
-     that move, no flash launch; device ms and peak memory.
+     that move, no launch of flash's serving call or the scan (the
+     flash training route counted apart); device ms and peak memory.
 
   12. the analysis layer: ``python -m repro_torch.launch.dryrun`` for
      microllama-300m's four shapes and the train_4k of phi3-medium-14b
@@ -174,11 +186,14 @@ any failure raises and exits non-zero:
      run's own programs at one card's shapes (MicroLlama-300M bf16
      prefill of 4 x 512 with last-token logits; one AdamW inner step at
      seq 128, batch 8), counted on meta tensors and again on the card
-     (the FLOPs must be equal), the predicted peak (arguments + temp)
-     against ``max_memory_allocated``, and the device time against the
-     roofline bound of the card's count (the phase fails if a bound
-     exceeds its measured time: a count above what the card did is a
-     wrong count).
+     (the FLOPs must be equal; the inner step's attention takes flash's
+     training route on the card, whose launches the count cannot see,
+     so there every call must be on the route and the card's count
+     below the meta one, the plain program's), the predicted peak
+     (arguments + temp) against ``max_memory_allocated``, and the
+     device time against the roofline bound of the card's count (the
+     phase fails if a bound exceeds its measured time: a count above
+     what the card did is a wrong count).
 
 A phase alone: ``python3 -c 'import sys; sys.path.insert(0, "."); import
 chip_smoke as cs; cs.phase_probe()'`` from the root (each phase builds
@@ -399,11 +414,7 @@ def phase_env():
 
 def sass_count(lib: Path, opcode: str) -> int:
     """Lines of ``cuobjdump -sass lib`` that hold ``opcode``."""
-    from repro_torch.kernels._build import nvcc_path
-    cuobjdump = Path(nvcc_path()).with_name("cuobjdump")
-    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], check=True,
-                          capture_output=True, text=True).stdout
-    return sum(opcode in line for line in sass.splitlines())
+    return sum(sass_by_function(lib, opcode).values())
 
 
 # the Pallas kernel pads S to a multiple of its 128-key tile
@@ -556,6 +567,119 @@ def phase_kernels():
                                  f"version: {row}")
     return rows
 
+
+
+def sass_by_function(lib: Path, opcode: str) -> dict:
+    """Lines holding ``opcode`` in each function of ``cuobjdump -sass
+    lib``, by the function's (mangled) name."""
+    from repro_torch.kernels._build import nvcc_path
+    cuobjdump = Path(nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], check=True,
+                          capture_output=True, text=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and opcode in line:
+            counts[fn] += 1
+    return counts
+
+
+# the training shapes (B, S, H, Hk, hd) of the benchmark's cells:
+# stablelm-1.6b at b 8, phi3-medium-14b at b 4
+TRAIN_ATTN_SHAPES = {"stablelm-1.6b": (8, 2048, 32, 32, 64),
+                     "phi3-medium-14b": (4, 2048, 40, 10, 128)}
+
+
+def attn_train_bounds(B, S, H, Hk, hd) -> dict:
+    """Bound ms of the training forward (2 products) and backward (5
+    products) of causal attention: FLOPs 2 B H S^2 hd per product over
+    the half square, at the bf16 peak, beside the bytes term (forward:
+    q, k, v read, o and the log-sum-exp written; backward: q, k, v, o,
+    dO and the log-sum-exp read, dq, dk, dv written)."""
+    flops = 2 * B * H * S * S * hd / 2
+    elem = 2
+    qb, kvb, lse = B * S * H * hd * elem, B * S * Hk * hd * elem, B * H * S * 4
+    out = {}
+    for name, products, nbytes in (
+            ("fwd", 2, 2 * qb + 2 * kvb + lse),
+            ("bwd", 5, 3 * qb + 2 * kvb + lse + qb + 2 * kvb)):
+        t_ops = products * flops / PEAK_FLOPS[torch.bfloat16]
+        t_bytes = nbytes / PEAK_BYTES
+        out[name] = dict(bound_ms=max(t_ops, t_bytes) * 1e3,
+                         ops_ms=t_ops * 1e3, bytes_ms=t_bytes * 1e3,
+                         flops=products * flops, bytes=nbytes,
+                         bound_by="operations" if t_ops >= t_bytes
+                         else "bytes")
+    return out
+
+
+def phase_flash_train() -> list:
+    """The training route of flash attention at the benchmark's two
+    training shapes.  First the wrapper the main path runs
+    (``ops.flash_attention_train`` under autograd: its copies, saved
+    tensors and gradients) against the plain path's autograd
+    (``layers.sdpa``), both against f32, by ``flash_train_card.
+    check_grads``, the one check and tolerance the ``gpu`` tests use at
+    their smaller shapes.  Then the device ms of the bindings alone (the
+    tensor-core forward with its log-sum-exp, the backward kernels)
+    beside the bound, the plain autograd's and the library's
+    (``F.scaled_dot_product_attention``, a yardstick the port never
+    calls).  HGMMA must be in the SASS of every backward kernel."""
+    import torch.nn.functional as F
+    from repro_torch.kernels._build import build
+    from repro_torch.kernels.flash_attention import kernel
+    from repro_torch.models.layers import sdpa
+    sys.path.insert(0, str(ROOT / "tests"))
+    import flash_train_card
+
+    sass = sass_by_function(build("flash_attention").path, "HGMMA")
+    bwd_sass = {fn: n for fn, n in sass.items() if "flash_bwd" in fn}
+    emit("flash_train_sass", hgmma_by_backward_kernel=bwd_sass)
+    if len(bwd_sass) < 4 or not all(bwd_sass.values()):
+        raise AssertionError(f"a backward kernel holds no HGMMA: {bwd_sass}")
+    rows = []
+    for arch, shape in TRAIN_ATTN_SHAPES.items():
+        grads = flash_train_card.check_grads(shape)
+        emit("flash_train_grads", arch=arch, **grads)
+        torch.cuda.empty_cache()
+        q, k, v, do = flash_train_card.inputs(*shape)
+        o, lse = kernel.flash_attention_fwd_lse(q, k, v)
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        plain = sdpa(*leaves, causal=True)
+        lib_in = [t.detach().transpose(1, 2).contiguous().requires_grad_(True)
+                  for t in (q, k, v)]
+        lib = F.scaled_dot_product_attention(*lib_in, is_causal=True,
+                                             enable_gqa=True)
+        do_t = do.transpose(1, 2).contiguous()
+        bounds = attn_train_bounds(*shape)
+        row = dict(
+            arch=arch, shape=list(shape), dtype="bfloat16",
+            fwd_kernel_ms=device_ms(
+                lambda: kernel.flash_attention_fwd_lse(q, k, v)),
+            bwd_kernel_ms=device_ms(
+                lambda: kernel.flash_attention_bwd(q, k, v, o, lse, do)),
+            fwd_plain_ms=device_ms(lambda: sdpa(q, k, v, causal=True),
+                                   iters=5),
+            bwd_plain_ms=device_ms(lambda: torch.autograd.grad(
+                plain, leaves, do, retain_graph=True), iters=5),
+            fwd_library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+                *(t.detach() for t in lib_in), is_causal=True,
+                enable_gqa=True)),
+            bwd_library_ms=device_ms(lambda: torch.autograd.grad(
+                lib, lib_in, do_t, retain_graph=True)),
+            fwd_bound=bounds["fwd"], bwd_bound=bounds["bwd"],
+            nvidia_smi=smi_line())
+        row["fwd_share_of_bound"] = (bounds["fwd"]["bound_ms"]
+                                     / row["fwd_kernel_ms"])
+        row["bwd_share_of_bound"] = (bounds["bwd"]["bound_ms"]
+                                     / row["bwd_kernel_ms"])
+        emit("flash_train", **row)
+        rows.append({**row, "grads": grads})
+        del plain, lib, leaves, lib_in
+        torch.cuda.empty_cache()
+    return rows
 
 def gradstats_bounds(B: int, D: int, elem: int):
     """(bound_ms, bound_by) per kernel: each input read once, each
@@ -802,6 +926,9 @@ def launch_counts():
     return {"flash_attention": flash.launches,
             "flash_attention_tc": flash.tc_launches,
             "flash_attention_fma": flash.fma_launches,
+            "flash_train_fwd": flash.train_fwd_launches,
+            "flash_train_bwd": flash.train_bwd_launches,
+            "flash_train_plain": flash.train_plain_calls,
             "mamba_scan": scan.scan_launches,
             "gradstats_colsum": gs.colsum_launches,
             "gradstats_moments": gs.moments_launches}
@@ -812,6 +939,7 @@ def reset_counts():
     from repro_torch.kernels.gradstats import ops as gs
     from repro_torch.kernels.mamba_scan import ops as scan
     flash.launches = flash.tc_launches = flash.fma_launches = 0
+    flash.reset_train_counts()
     scan.scan_launches = 0
     gs.colsum_launches = gs.moments_launches = 0
 
@@ -1260,6 +1388,7 @@ def run_training(label: str, argv):
     torch.cuda.reset_peak_memory_stats()
     rec = {"reductions": 0}
     flash_ops.launches = 0
+    flash_ops.reset_train_counts()
     gs_ops.colsum_launches = gs_ops.moments_launches = 0
     t0 = time.perf_counter()
     with compare_one_stats_round(rec):
@@ -1268,7 +1397,10 @@ def run_training(label: str, argv):
     wall = time.perf_counter() - t0
     launches = {"colsum": gs_ops.colsum_launches,
                 "moments": gs_ops.moments_launches,
-                "flash_attention": flash_ops.launches}
+                "flash_attention": flash_ops.launches,
+                "flash_train_fwd": flash_ops.train_fwd_launches,
+                "flash_train_bwd": flash_ops.train_bwd_launches,
+                "flash_train_plain": flash_ops.train_plain_calls}
     peak = torch.cuda.max_memory_allocated()
     for i, t in enumerate(hist.outer_step):
         emit("train_round", run=label, round=t, loss=hist.loss[i],
@@ -1305,7 +1437,14 @@ def run_training(label: str, argv):
                              f"against {rec['reductions']} stats "
                              f"reductions ({expected} expected)")
     if launches["flash_attention"] != 0:
-        raise AssertionError(f"{label}: training launched the flash kernel")
+        raise AssertionError(f"{label}: training launched the flash "
+                             "serving kernel")
+    # every attention call on the training route, each remat layer's
+    # forward twice (the recompute)
+    if not (launches["flash_train_fwd"] == 2 * launches["flash_train_bwd"]
+            > 0 and launches["flash_train_plain"] == 0):
+        raise AssertionError(f"{label}: training attention off the "
+                             f"kernels' route: {launches}")
     if not agree:
         raise AssertionError(f"{label}: kernel and plain stats differ: "
                              f"{rec}")
@@ -1646,8 +1785,9 @@ def run_training_family(label: str, argv, must_chunk: bool = True):
     unless the losses and final parameters are finite, each gradstats
     kernel launched once per probe chunk and sweep, at least one probe
     ran in row chunks (where ``must_chunk``: its G does not fit beside
-    the workers), and neither flash nor the scan kernel launched
-    (training runs plain attention and the associative scan)."""
+    the workers), and neither flash's serving call nor the scan kernel
+    launched (training runs the associative scan, and attention on the
+    plain path or the flash training route, counted apart)."""
     from repro_torch.launch import train
 
     torch.cuda.synchronize()
@@ -1974,9 +2114,11 @@ def inner_steps(label: str, cfg, batches):
             or not moved > 0:
         raise AssertionError(f"{label}: losses {losses}, params finite "
                              f"{finite}, moved {moved}")
-    if any(launches.values()):
-        raise AssertionError(f"{label}: training launched a kernel: "
-                             f"{launches}")
+    # the forward-only kernels: flash's serving call and the scan (the
+    # flash training route counts apart, as flash_train_*)
+    if any(n for k, n in launches.items() if not k.startswith("flash_train")):
+        raise AssertionError(f"{label}: training launched a forward-only "
+                             f"kernel: {launches}")
     del params, first, state
     torch.cuda.empty_cache()
     return dict(losses=losses, step_ms=device_ms, peak=peak)
@@ -2593,7 +2735,16 @@ def card_check(label: str, cfg, shape, make_args, iters: int = 5,
     scaled by their trip count), then on the card with real tensors
     (every block run): FLOPs and bytes equal; the predicted peak against
     the allocator's; the device time against the roofline bound of the
-    card's count."""
+    card's count.
+
+    A training step on the card sends its attention to flash's training
+    route, whose ctypes launches the dispatch counter does not see,
+    while the meta trace counts the plain attention (as JAX's lowering
+    does).  There the check requires every training attention call on
+    the route and the card's count below the meta count in both FLOPs
+    and bytes, and prints the gap: the dry run's training numbers are
+    the plain program's, not the card's (ROADMAP, open items)."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.launch import dryrun, op_analysis
     from repro_torch.launch import mesh as M
     mesh = M.make_host_mesh()
@@ -2603,12 +2754,26 @@ def card_check(label: str, cfg, shape, make_args, iters: int = 5,
     predicted = dryrun.local_bytes(meta_args) + meta.temp_bytes
     args = make_args()
     card = op_analysis.OpCounter()
+    flash_ops.reset_train_counts()
     dryrun.trace(card, step, args, policy)
-    if (card.cost.flops, card.cost.bytes) != (meta.cost.flops,
-                                              meta.cost.bytes):
-        raise AssertionError(f"{label}: card count {card.cost.flops} FLOPs,"
-                             f" {card.cost.bytes} bytes != meta count "
-                             f"{meta.cost.flops}, {meta.cost.bytes}")
+    route = {"fwd": flash_ops.train_fwd_launches,
+             "bwd": flash_ops.train_bwd_launches,
+             "plain": flash_ops.train_plain_calls}
+    if route["fwd"] == 0:
+        if (card.cost.flops, card.cost.bytes) != (meta.cost.flops,
+                                                  meta.cost.bytes):
+            raise AssertionError(
+                f"{label}: card count {card.cost.flops} FLOPs, "
+                f"{card.cost.bytes} bytes != meta count {meta.cost.flops}, "
+                f"{meta.cost.bytes}")
+    elif (route["plain"] or not route["fwd"] >= route["bwd"] > 0
+          or card.cost.flops >= meta.cost.flops
+          or card.cost.bytes >= meta.cost.bytes):
+        raise AssertionError(
+            f"{label}: training route {route}, card count "
+            f"{card.cost.flops} FLOPs, {card.cost.bytes} bytes against the "
+            f"plain program's meta count {meta.cost.flops}, "
+            f"{meta.cost.bytes}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     step(*args)
@@ -2622,6 +2787,7 @@ def card_check(label: str, cfg, shape, make_args, iters: int = 5,
            "torch": torch.__version__,
            "flops_meta": meta.cost.flops, "flops_card": card.cost.flops,
            "bytes_card": card.cost.bytes, "bytes_meta": meta.cost.bytes,
+           "flash_train_route": route,
            "predicted_peak_bytes": predicted, "max_memory_allocated": peak,
            "device_ms": ms, "compute_ms": compute_ms, "memory_ms": memory_ms,
            "bound_ms": bound_ms,
@@ -2776,6 +2942,7 @@ def main() -> int:
     smi, hgmma = timed("env", phase_env)
     flash_rows = timed("kernels_flash", phase_kernels)
     flash = flash_rows[0]
+    flash_train = timed("kernels_flash_train", phase_flash_train)
     gs = timed("kernels_gradstats", phase_gradstats_kernels)
     scan, scan_hybrid = timed("kernels_scan", phase_scan_kernels)
     launches = timed("generate", phase_generate)
@@ -2868,7 +3035,15 @@ def main() -> int:
         "lanes": scan["lanes"], "warps_per_sm": scan["warps_per_sm"],
         "share_of_bound": scan["share_of_bound"],
         "hybrid_ms": scan_hybrid["kernel_ms"],
-        "hybrid_lanes": scan_hybrid["lanes"]}]
+        "hybrid_lanes": scan_hybrid["lanes"]}, {
+        "name": "flash_attention_bwd", "route": "cuda", "source": FLASH_SRC,
+        "replaces": None, "launches": train_launches["flash_train_bwd"],
+        "launches_fwd_lse": train_launches["flash_train_fwd"],
+        "by_shape": {r["arch"]: {f: r[f] for f in (
+            "shape", "grads", "fwd_kernel_ms", "bwd_kernel_ms",
+            "fwd_plain_ms", "bwd_plain_ms", "fwd_library_ms",
+            "bwd_library_ms", "fwd_bound", "bwd_bound")}
+            for r in flash_train}}]
     print(json.dumps({"kernels": kernels,
                       "seconds": time.perf_counter() - t0}), flush=True)
     print(smi, flush=True)

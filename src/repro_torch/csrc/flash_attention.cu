@@ -1,5 +1,6 @@
-// Flash-attention forward for NVIDIA Hopper (sm_90a), with a plain C
-// interface for ctypes (repro_torch/kernels/flash_attention/kernel.py).
+// Flash-attention forward (and, for training, backward) for NVIDIA
+// Hopper (sm_90a), with a plain C interface for ctypes
+// (repro_torch/kernels/flash_attention/kernel.py).
 //
 // Replaces the TPU kernel `_flash_kernel` in
 // src/repro/kernels/flash_attention/kernel.py (driven there by
@@ -88,6 +89,12 @@
 //    tiles stay in 48 KB of static shared memory) staged as f32.  f32 stays off the tensor
 //    cores on purpose: TF32 keeps about three digits, and the f32
 //    serving paths are held to 1e-4 of their plain versions.
+//
+// The training route (causal bf16, hd 64 or 128, no window) adds the
+// tensor-core forward's log-sum-exp store and three backward kernels,
+// after the forward below.  They replace no TPU kernel: the JAX package
+// has no flash backward and trains on its plain attention, whose f32
+// (B, H, S, S) score passes held most of the port's training step.
 //
 // See PERF.md for the measured times.
 
@@ -288,6 +295,8 @@ constexpr int BK = 64;          // keys per K/V tile
 constexpr int STAGES = 2;       // K/V tiles in flight
 constexpr int THREADS = 128;    // one warpgroup
 constexpr int ROW_BYTES = 128;  // one swizzled row: 64 bf16 of hd
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -454,13 +463,18 @@ __device__ __forceinline__ void load_kv(const CUtensorMap* kmap,
 // Shared memory, 1024-byte aligned: Q (HDP/64 blocks of 64 rows x 128
 // bytes), then per stage K and V (HDP/64 blocks of BK rows x 128 bytes
 // each), then 1 + STAGES mbarriers (Q, then a stage's).
-template <int HDP>
+// WITH_LSE (training): also write each row's log-sum-exp of the scaled
+// logits, natural log, into lse (B, H, Sp), Sp = S rounded up to BQ,
+// the rows past S included (finite: their zero-filled queries see the
+// keys before S).  The serving instantiation has no such store.
+template <int HDP, bool WITH_LSE>
 __global__ void __launch_bounds__(THREADS)
 flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                 const __grid_constant__ CUtensorMap kmap,
                 const __grid_constant__ CUtensorMap vmap,
-                __nv_bfloat16* __restrict__ o, int S, int H, int Hk, int hd,
-                int causal, int window, float scale_log2) {
+                __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                int S, int H, int Hk, int hd, int causal, int window,
+                float scale_log2) {
   constexpr int NCB = HDP / 64;                  // column blocks per row
   constexpr int Q_BYTES = BQ * HDP * 2;
   constexpr int KV_BYTES = BK * HDP * 2;         // one K or one V tile
@@ -646,6 +660,14 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;
   const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
+  if constexpr (WITH_LSE) {
+    // m and l are in base 2 of the pre-scaled scores
+    if (lane % 4 == 0) {
+      float* lrow = lse + ((size_t)b * H + h) * (gridDim.x * BQ);
+      lrow[r0] = (m0 + log2f(l0)) * LN2;
+      lrow[r1] = (m1 + log2f(l1)) * LN2;
+    }
+  }
   __nv_bfloat16* o0 = o + (((size_t)b * S + r0) * H + h) * hd;
   __nv_bfloat16* o1 = o + (((size_t)b * S + r1) * H + h) * hd;
 #pragma unroll
@@ -659,6 +681,391 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
       *reinterpret_cast<__nv_bfloat162*>(o1 + col) = __floats2bfloat162_rn(
           oacc[4 * j + 2] * inv1, oacc[4 * j + 3] * inv1);
   }
+}
+
+
+// ---------------------------------------------------------------------
+// Backward of causal attention (training), bf16, hd 64 or 128.  Three
+// launches on one stream:
+//   1. bwd_dot_kernel: D = rowsum(dO * O) in f32, (B, H, Sp), 0 past S.
+//   2. flash_bwd_dkdv_kernel: one CTA of one warpgroup per (key tile of
+//      64, kv head, batch).  K and V tiles are loaded once; the Q and dO
+//      tiles of every query head of the kv head's group and every query
+//      tile on or below the diagonal stream through two stages (tiles
+//      wholly above it contribute exactly 0 and are never loaded).  Per
+//      (head, query tile), with keys as the rows of every product:
+//        S^T = K Q^T                          wgmma ss, f32
+//        P^T = exp(S^T * scale - LSE)         f32 registers
+//        dV += P^T dO                         wgmma rs, P^T in bf16
+//        dP^T = V dO^T                        wgmma ss, f32
+//        dS^T = P^T * (dP^T - D) * scale      f32, rounded to bf16
+//        dK += dS^T Q                         wgmma rs
+//      dK and dV stay in f32 registers across the whole group, so GQA
+//      needs no atomics and no repeated k/v; one bf16 store at the end.
+//   3. flash_bwd_dq_kernel: one CTA per (query tile, head, batch), the
+//      heaviest (last) query tiles first.  Q, dO, LSE and D are loaded
+//      once; K and V tiles up to the diagonal stream through two stages:
+//        S = Q K^T, P = exp(S * scale - LSE), dP = dO V^T,
+//        dS = P * (dP - D) * scale (bf16), dQ += dS K.
+//      dQ stays in f32 registers, one bf16 store.  This separate sweep
+//      recomputes S and dP (7 products per tile pair instead of 5) and
+//      in exchange writes dQ once, with no atomics: the gradients are
+//      the same bits on every run.
+// Every product is one of the forward's two forms: both operands
+// K-major from shared memory (A = the tile whose rows are the output's,
+// B = the other tile, contracted over hd), or A from registers in the
+// accumulator layout of the previous product and B a (rows, hd) tile
+// read through the transpose bit.  Rounding follows the plain path's
+// autograd: P and dS are bf16 at the products that take them, dP stays
+// f32 (the plain path rounds it), scores stay f32 (the plain path
+// rounds them to bf16 before its f32 softmax).
+// Bound on an H100 SXM (989 TFLOP/s bf16 dense): 5 products of
+// 2 * 64 * 64 * hd FLOPs per visible tile pair and head, half the
+// square under causality; stablelm-1.6b's training shape (8, 2048, 32,
+// 32, 64): 0.344 TFLOP, 0.35 ms; phi3-medium-14b's (4, 2048, 40, 10,
+// 128): 0.430 TFLOP, 0.43 ms.  See PERF.md for the measured times.
+
+// D[b, h, s] = sum_d dO[b, s, h, d] * O[b, s, h, d]; one warp per row
+// (b, s, h) of the padded length Sp, rows past S write 0.
+__global__ void __launch_bounds__(256)
+bwd_dot_kernel(const __nv_bfloat16* __restrict__ o,
+               const __nv_bfloat16* __restrict__ dout, float* __restrict__ D,
+               int B, int S, int Sp, int H, int hd) {
+  const int lane = threadIdx.x % 32;
+  const long long row = (long long)blockIdx.x * 8 + threadIdx.x / 32;
+  if (row >= (long long)B * Sp * H) return;
+  const int h = (int)(row % H);
+  const int s = (int)((row / H) % Sp);
+  const int b = (int)(row / ((long long)H * Sp));
+  float acc = 0.f;
+  if (s < S) {
+    const size_t off = (((size_t)b * S + s) * H + h) * hd;
+    for (int d = 2 * lane; d < hd; d += 64) {
+      const float2 x = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(o + off + d));
+      const float2 y = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(dout + off + d));
+      acc = fmaf(x.x, y.x, fmaf(x.y, y.y, acc));
+    }
+  }
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, m);
+  if (lane == 0) D[((size_t)b * H + h) * Sp + s] = acc;
+}
+
+// One 64-row tile (HDP / 64 column blocks) of one head at row r0.
+template <int HDP>
+__device__ __forceinline__ void load_tile(const CUtensorMap* map,
+                                          uint32_t bar, uint32_t dst, int r0,
+                                          int head, int b) {
+#pragma unroll
+  for (int c = 0; c < HDP / 64; ++c)
+    tma_load(dst + c * BK * ROW_BYTES, map, bar, 64 * c, head, r0, b);
+}
+
+// The Q and dO tiles of head h at query q0 into one stage (Q at dst,
+// dO after it), completing on `bar`; one thread issues it.
+template <int HDP>
+__device__ __forceinline__ void load_qdo(const CUtensorMap* qmap,
+                                         const CUtensorMap* domap,
+                                         uint32_t bar, uint32_t dst, int q0,
+                                         int h, int b) {
+  mbar_expect_tx(bar, 2 * BQ * HDP * 2);
+  load_tile<HDP>(qmap, bar, dst, q0, h, b);
+  load_tile<HDP>(domap, bar, dst + BQ * HDP * 2, q0, h, b);
+}
+
+// A (64 rows x HDP) tile at `sa` times the transpose of the tile at
+// `sb`, contracted over hd: d = A B^T (64 x 64, f32).
+template <int HDP>
+__device__ __forceinline__ void product_abt(float (&d)[32], uint32_t sa,
+                                            uint32_t sb) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) d[i] = 0.f;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < HDP / 16; ++kk) {
+    const uint32_t off = (kk / 4) * BK * ROW_BYTES + (kk % 4) * 32;
+    wgmma_ss_n64(d, sw128_desc(sa + off, 16, 1024),
+                 sw128_desc(sb + off, 16, 1024), kk > 0);
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(d);
+}
+
+// acc (64 x HDP, f32) += A (64 x 64, the bf16 fragments `a`, contracted
+// over its columns) times the (64 rows x HDP) tile at `sb`.
+template <int HDP>
+__device__ __forceinline__ void product_acc(float (&acc)[HDP / 2],
+                                            const uint32_t (&a)[4][4],
+                                            uint32_t sb) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t db =
+        sw128_desc(sb + kk * 16 * ROW_BYTES, BK * ROW_BYTES, 1024);
+    if constexpr (HDP == 64) {
+      wgmma_rs_n64(acc, a[kk], db);
+    } else {
+      wgmma_rs_n128<0>(acc, a[kk], db);
+    }
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(acc);
+}
+
+// The accumulator layout of a 64 x 64 product as the A fragments of the
+// next: keys (or queries) 16 kk .. 16 kk + 15 of the tile.
+__device__ __forceinline__ void pack_fragments(uint32_t (&a)[4][4],
+                                               const float (&x)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    a[kk][0] = pack_bf16(x[8 * kk], x[8 * kk + 1]);
+    a[kk][1] = pack_bf16(x[8 * kk + 2], x[8 * kk + 3]);
+    a[kk][2] = pack_bf16(x[8 * kk + 4], x[8 * kk + 5]);
+    a[kk][3] = pack_bf16(x[8 * kk + 6], x[8 * kk + 7]);
+  }
+}
+
+// Rows r0 and r0 + 8 of a 64 x HDP f32 accumulator to bf16 rows of a
+// (B, S, heads, HDP) tensor, rows < S only.
+template <int HDP>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* out,
+                                           const float (&acc)[HDP / 2],
+                                           int b, int S, int heads, int head,
+                                           int r0, int cq) {
+  __nv_bfloat16* o0 = out + (((size_t)b * S + r0) * heads + head) * HDP;
+  __nv_bfloat16* o1 = o0 + (size_t)8 * heads * HDP;
+#pragma unroll
+  for (int j = 0; j < HDP / 8; ++j) {
+    const int col = 8 * j + cq;
+    if (r0 < S)
+      *reinterpret_cast<__nv_bfloat162*>(o0 + col) =
+          __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 1]);
+    if (r0 + 8 < S)
+      *reinterpret_cast<__nv_bfloat162*>(o1 + col) =
+          __floats2bfloat162_rn(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+}
+
+// Shared memory, 1024-byte aligned: K, V (one tile each), then per stage
+// Q and dO, then 1 + STAGES mbarriers (K/V, then a stage's).
+template <int HDP>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap qmap,
+                      const __grid_constant__ CUtensorMap kmap,
+                      const __grid_constant__ CUtensorMap vmap,
+                      const __grid_constant__ CUtensorMap domap,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ dsum,
+                      __nv_bfloat16* __restrict__ dk,
+                      __nv_bfloat16* __restrict__ dv, int S, int H, int Hk,
+                      float scale, float scale_log2) {
+  constexpr int TILE = BK * HDP * 2;
+  constexpr int NO = HDP / 2;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sk = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sv = sk + TILE;
+  const uint32_t ring = sv + TILE;               // stage s: Q, then dO
+  const uint32_t bars = ring + STAGES * 2 * TILE;
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int k0 = blockIdx.x * BK;
+  const int hk = blockIdx.y;
+  const int b = blockIdx.z;
+  const int G = H / Hk;
+  const int Sp = gridDim.x * BK;
+  const int first = k0 / BQ;                     // the diagonal query tile
+  const int per_head = Sp / BQ - first;
+  const int n = G * per_head;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i <= STAGES; ++i) mbar_init(bars + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // iteration it: head hk * G + it / per_head, query tile first + it %
+  // per_head
+  if (tid == 0) {
+    mbar_expect_tx(bars, 2 * TILE);
+    load_tile<HDP>(&kmap, bars, sk, k0, hk, b);
+    load_tile<HDP>(&vmap, bars, sv, k0, hk, b);
+    for (int i = 0; i < STAGES && i < n; ++i)
+      load_qdo<HDP>(&qmap, &domap, bars + 8 * (1 + i), ring + i * 2 * TILE,
+                    (first + i % per_head) * BQ, hk * G + i / per_head, b);
+  }
+
+  // this thread's rows (keys) kr0 and kr0 + 8; columns (queries)
+  // q0 + 8 j + cq + e
+  const int kr0 = k0 + warp * 16 + lane / 4;
+  const int kr1 = kr0 + 8;
+  const int cq = 2 * (lane % 4);
+  float dka[NO], dva[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) dka[i] = dva[i] = 0.f;
+
+  mbar_wait(bars, 0);
+  for (int it = 0; it < n; ++it) {
+    const int s = it % STAGES;
+    const int h = hk * G + it / per_head;
+    const int q0 = (first + it % per_head) * BQ;
+    const uint32_t sq = ring + s * 2 * TILE;
+    const uint32_t sdo = sq + TILE;
+    const float* lrow = lse + ((size_t)b * H + h) * Sp + q0 + cq;
+    const float* drow = dsum + ((size_t)b * H + h) * Sp + q0 + cq;
+    mbar_wait(bars + 8 * (1 + s), (it / STAGES) & 1);
+
+    float p[32];
+    product_abt<HDP>(p, sk, sq);                 // S^T = K Q^T
+    // the diagonal tile masks keys after the query; a ragged last tile
+    // the queries at or past S (zero-filled; P = 0 keeps them out)
+    const bool edge = q0 == k0 || q0 + BQ > S;
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) {
+      const float2 l2 = *reinterpret_cast<const float2*>(lrow + 8 * j);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float lc = (e ? l2.y : l2.x) * LOG2E;
+        float p0 = exp2f(fmaf(p[4 * j + e], scale_log2, -lc));
+        float p1 = exp2f(fmaf(p[4 * j + 2 + e], scale_log2, -lc));
+        if (edge) {
+          const int qpos = q0 + 8 * j + cq + e;
+          if (qpos < kr0 || qpos >= S) p0 = 0.f;
+          if (qpos < kr1 || qpos >= S) p1 = 0.f;
+        }
+        p[4 * j + e] = p0;
+        p[4 * j + 2 + e] = p1;
+      }
+    }
+    uint32_t a[4][4];
+    pack_fragments(a, p);
+    product_acc<HDP>(dva, a, sdo);               // dV += P^T dO
+
+    float dp[32];
+    product_abt<HDP>(dp, sv, sdo);               // dP^T = V dO^T
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) {
+      const float2 d2 = *reinterpret_cast<const float2*>(drow + 8 * j);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float dc = e ? d2.y : d2.x;
+        p[4 * j + e] *= (dp[4 * j + e] - dc) * scale;
+        p[4 * j + 2 + e] *= (dp[4 * j + 2 + e] - dc) * scale;
+      }
+    }
+    pack_fragments(a, p);
+    product_acc<HDP>(dka, a, sq);                // dK += dS^T Q
+
+    __syncthreads();   // every warp's products have read stage s
+    if (tid == 0 && it + STAGES < n) {
+      const int nx = it + STAGES;
+      load_qdo<HDP>(&qmap, &domap, bars + 8 * (1 + s), sq,
+                    (first + nx % per_head) * BQ, hk * G + nx / per_head, b);
+    }
+  }
+  store_rows<HDP>(dk, dka, b, S, Hk, hk, kr0, cq);
+  store_rows<HDP>(dv, dva, b, S, Hk, hk, kr0, cq);
+}
+
+// Shared memory, 1024-byte aligned: Q, dO (one tile each), then per
+// stage K and V, then 1 + STAGES mbarriers (Q/dO, then a stage's).
+template <int HDP>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
+                    const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap,
+                    const __grid_constant__ CUtensorMap domap,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ dsum,
+                    __nv_bfloat16* __restrict__ dq, int S, int H, int Hk,
+                    float scale, float scale_log2) {
+  constexpr int TILE = BK * HDP * 2;
+  constexpr int NO = HDP / 2;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sq = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sdo = sq + TILE;
+  const uint32_t ring = sdo + TILE;              // stage s: K, then V
+  const uint32_t bars = ring + STAGES * 2 * TILE;
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int Sp = gridDim.x * BQ;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;   // longest rows first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = h / (H / Hk);
+  const int n = (min(S, q0 + BQ) + BK - 1) / BK;     // key tiles to the diagonal
+
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i <= STAGES; ++i) mbar_init(bars + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bars, 2 * TILE);
+    load_tile<HDP>(&qmap, bars, sq, q0, h, b);
+    load_tile<HDP>(&domap, bars, sdo, q0, h, b);
+    for (int i = 0; i < STAGES && i < n; ++i)
+      load_kv<HDP>(&kmap, &vmap, bars + 8 * (1 + i), ring + i * 2 * TILE,
+                   i * BK, hk, b);
+  }
+
+  // this thread's rows (queries) r0 and r0 + 8
+  const int r0 = q0 + warp * 16 + lane / 4;
+  const int r1 = r0 + 8;
+  const int cq = 2 * (lane % 4);
+  const float* lrow = lse + ((size_t)b * H + h) * Sp;
+  const float* drow = dsum + ((size_t)b * H + h) * Sp;
+  const float lc0 = lrow[r0] * LOG2E, lc1 = lrow[r1] * LOG2E;
+  const float dc0 = drow[r0], dc1 = drow[r1];
+  float dqa[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) dqa[i] = 0.f;
+
+  mbar_wait(bars, 0);
+  for (int it = 0; it < n; ++it) {
+    const int s = it % STAGES;
+    const int k0 = it * BK;
+    const uint32_t sk = ring + s * 2 * TILE;
+    const uint32_t sv = sk + TILE;
+    mbar_wait(bars + 8 * (1 + s), (it / STAGES) & 1);
+
+    float p[32];
+    product_abt<HDP>(p, sq, sk);                 // S = Q K^T
+    float dp[32];
+    product_abt<HDP>(dp, sdo, sv);               // dP = dO V^T
+    const bool edge = k0 + BK - 1 > q0;          // the diagonal tile
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int kpos = k0 + 8 * j + cq + e;
+        float p0 = exp2f(fmaf(p[4 * j + e], scale_log2, -lc0));
+        float p1 = exp2f(fmaf(p[4 * j + 2 + e], scale_log2, -lc1));
+        if (edge) {
+          if (kpos > r0) p0 = 0.f;
+          if (kpos > r1) p1 = 0.f;
+        }
+        p[4 * j + e] = p0 * (dp[4 * j + e] - dc0) * scale;
+        p[4 * j + 2 + e] = p1 * (dp[4 * j + 2 + e] - dc1) * scale;
+      }
+    }
+    uint32_t a[4][4];
+    pack_fragments(a, p);
+    product_acc<HDP>(dqa, a, sk);                // dQ += dS K
+
+    __syncthreads();   // every warp's products have read stage s
+    if (tid == 0 && it + STAGES < n)
+      load_kv<HDP>(&kmap, &vmap, bars + 8 * (1 + s), sk, k0 + STAGES * BK,
+                   hk, b);
+  }
+  store_rows<HDP>(dq, dqa, b, S, H, h, r0, cq);
 }
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
@@ -706,25 +1113,73 @@ bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+template <int HDP, bool WITH_LSE>
+int launch_fwd(const CUtensorMap& qm, const CUtensorMap& km,
+               const CUtensorMap& vm, void* o, float* lse, int B, int S,
+               int H, int Hk, int hd, int causal, int window, float scale,
+               cudaStream_t stream) {
+  const int smem =
+      BQ * HDP * 2 + STAGES * 2 * BK * HDP * 2 + (1 + STAGES) * 8 + 1024;
+  cudaError_t rc = cudaFuncSetAttribute(
+      flash_tc_kernel<HDP, WITH_LSE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const dim3 grid((S + BQ - 1) / BQ, H, B);
+  flash_tc_kernel<HDP, WITH_LSE><<<grid, THREADS, smem, stream>>>(
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), lse, S, H, Hk, hd, causal,
+      window, scale * LOG2E);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int HDP>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int S, int H, int Hk, int hd, int causal, int window, float scale,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int S, int H, int Hk, int hd, int causal, int window,
+           float scale, cudaStream_t stream) {
   static_assert(BQ == BK, "one box shape serves the Q and the K/V maps");
   CUtensorMap qm, km, vm;
   if (!make_map(&qm, q, B, S, H, hd) || !make_map(&km, k, B, S, Hk, hd) ||
       !make_map(&vm, v, B, S, Hk, hd))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int smem =
-      BQ * HDP * 2 + STAGES * 2 * BK * HDP * 2 + (1 + STAGES) * 8 + 1024;
-  cudaError_t rc = cudaFuncSetAttribute(
-      flash_tc_kernel<HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+  if (lse != nullptr)
+    return launch_fwd<HDP, true>(qm, km, vm, o, lse, B, S, H, Hk, hd, causal,
+                                 window, scale, stream);
+  return launch_fwd<HDP, false>(qm, km, vm, o, nullptr, B, S, H, Hk, hd,
+                                causal, window, scale, stream);
+}
+
+template <int HDP>
+int launch_bwd(const void* q, const void* k, const void* v, const void* o,
+               const void* dout, const float* lse, float* dsum, void* dq,
+               void* dk, void* dv, int B, int S, int H, int Hk, float scale,
+               cudaStream_t stream) {
+  const int Sp = (S + BQ - 1) / BQ * BQ;
+  const long long rows = (long long)B * Sp * H;
+  bwd_dot_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(o),
+      static_cast<const __nv_bfloat16*>(dout), dsum, B, S, Sp, H, HDP);
+  cudaError_t rc = cudaGetLastError();
   if (rc != cudaSuccess) return static_cast<int>(rc);
-  const dim3 grid((S + BQ - 1) / BQ, H, B);
-  flash_tc_kernel<HDP><<<grid, THREADS, smem, stream>>>(
-      qm, km, vm, static_cast<__nv_bfloat16*>(o), S, H, Hk, hd, causal,
-      window, scale * 1.4426950408889634f);
+  CUtensorMap qm, km, vm, dom;
+  if (!make_map(&qm, q, B, S, H, HDP) || !make_map(&km, k, B, S, Hk, HDP) ||
+      !make_map(&vm, v, B, S, Hk, HDP) || !make_map(&dom, dout, B, S, H, HDP))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // two resident tiles and two per stage, 64 rows each
+  const int smem = (2 + 2 * STAGES) * BK * HDP * 2 + (1 + STAGES) * 8 + 1024;
+  const float scale_log2 = scale * LOG2E;
+  rc = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<HDP>,
+                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  flash_bwd_dkdv_kernel<HDP><<<dim3(Sp / BK, Hk, B), THREADS, smem, stream>>>(
+      qm, km, vm, dom, lse, dsum, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), S, H, Hk, scale, scale_log2);
+  rc = cudaGetLastError();
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  rc = cudaFuncSetAttribute(flash_bwd_dq_kernel<HDP>,
+                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  flash_bwd_dq_kernel<HDP><<<dim3(Sp / BQ, H, B), THREADS, smem, stream>>>(
+      qm, km, vm, dom, lse, dsum, static_cast<__nv_bfloat16*>(dq), S, H, Hk,
+      scale, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -737,8 +1192,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 // kernel.py's `choose_path`).  Launches on `stream`, allocates nothing
 // on the device, returns cudaGetLastError() of the launch.
 extern "C" int repro_flash_attention_fwd(const void* q, const void* k,
-                                         const void* v, void* o, int B,
-                                         int S, int H, int Hk, int hd,
+                                         const void* v, void* o, float* lse,
+                                         int B, int S, int H, int Hk, int hd,
                                          int causal, int window,
                                          float scale, int dtype,
                                          void* stream) {
@@ -748,19 +1203,46 @@ extern "C" int repro_flash_attention_fwd(const void* q, const void* k,
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 1 && hd % 16 == 0) {
     if (hd <= 64)
-      return tc_path::launch<64>(q, k, v, o, B, S, H, Hk, hd, causal,
+      return tc_path::launch<64>(q, k, v, o, lse, B, S, H, Hk, hd, causal,
                                  window, scale, st);
     if (hd <= 128)
-      return tc_path::launch<128>(q, k, v, o, B, S, H, Hk, hd, causal,
+      return tc_path::launch<128>(q, k, v, o, lse, B, S, H, Hk, hd, causal,
                                   window, scale, st);
-    return tc_path::launch<256>(q, k, v, o, B, S, H, Hk, hd, causal, window,
-                                scale, st);
+    return tc_path::launch<256>(q, k, v, o, lse, B, S, H, Hk, hd, causal,
+                                window, scale, st);
   }
+  if (lse != nullptr)   // the log-sum-exp is the tensor-core path's alone
+    return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
     return fma_path::dispatch_hd<float>(q, k, v, o, B, S, H, Hk, hd, causal,
                                         window, scale, st);
   if (dtype == 1)
     return fma_path::dispatch_hd<__nv_bfloat16>(q, k, v, o, B, S, H, Hk, hd,
                                                 causal, window, scale, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Gradients of causal attention (no window) for the training forward
+// above: q, o, dout, dq (B,S,H,hd), k, v, dk, dv (B,S,Hk,hd), bf16,
+// contiguous, 16-byte aligned, hd 64 or 128; lse (B,H,Sp) the forward's,
+// dsum (B,H,Sp) f32 scratch, Sp = S rounded up to 64.  Launches three
+// kernels on `stream`, allocates nothing, returns the first launch
+// error.
+extern "C" int repro_flash_attention_bwd(const void* q, const void* k,
+                                         const void* v, const void* o,
+                                         const void* dout, const float* lse,
+                                         float* dsum, void* dq, void* dk,
+                                         void* dv, int B, int S, int H,
+                                         int Hk, int hd, float scale,
+                                         void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (B <= 0 || S <= 0 || H <= 0 || Hk <= 0 || H % Hk != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (hd == 64)
+    return tc_path::launch_bwd<64>(q, k, v, o, dout, lse, dsum, dq, dk, dv, B,
+                                   S, H, Hk, scale, st);
+  if (hd == 128)
+    return tc_path::launch_bwd<128>(q, k, v, o, dout, lse, dsum, dq, dk, dv,
+                                    B, S, H, Hk, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

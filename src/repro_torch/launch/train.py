@@ -10,8 +10,10 @@ plus ``--device`` (default ``cuda``; tests pass ``cpu``),
 fields, defaults as there).  The trainer pool is orchestrated host-side
 over eager steps on the one device.  The batch statistics run through
 the gradstats kernels (``stats_use_kernel=True``); attention runs on
-the plain path, as in the JAX package's training, and the Mamba blocks'
-selective scan the associative scan through autograd (the CUDA scan
+the plain path, as in the JAX package's training, except causal bf16
+attention of hd 64 or 128 with no window on the card, which takes the
+flash kernels' forward and backward (``layers.policy_sdpa``); the
+Mamba blocks' selective scan the associative scan through autograd (the CUDA scan
 kernel is forward-only).  It trains the dense, moe, ssm, hybrid and
 vlm families; a VLM (phi-3-vision-4.2b) trains text-only, as the JAX
 launcher does, since the token streams carry no prefix.  An

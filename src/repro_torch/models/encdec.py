@@ -24,7 +24,10 @@ self-attention through ``kernels.flash_attention`` (the hand-written
 kernel on a CUDA tensor, its plain version on a CPU tensor), as
 serving does (``init_cache``); cross-attention (Sq != F) and the
 decoder's self attention stay plain ``sdpa``, as in the JAX package.
-Training (``loss_fn``) runs attention on the plain path.  Parameters
+Training (``loss_fn``) runs attention through ``layers.policy_sdpa``:
+on the card the decoder's causal bf16 self attention (hd 64) takes the
+flash kernels' training route, the encoder's bidirectional and the
+cross attention stay plain ``sdpa``; the CPU is plain.  Parameters
 are created with ``requires_grad=False``; training holds them as the
 flat dict of ``param_dict`` and runs ``loss_fn`` through
 ``torch.func.functional_call`` on ``template``, as ``models.lm`` does.
@@ -211,7 +214,7 @@ def _head(params: EncDecLM, x, cfg: ModelConfig):
 def decode_forward(params: EncDecLM, tokens, enc_out, cfg: ModelConfig, *,
                    remat: bool = True):
     """Teacher-forced decoder pass: tokens (B,S) -> logits (B,S,V), its
-    attention on the plain path.  ``remat``: recompute each decoder
+    attention through ``layers.policy_sdpa``.  ``remat``: recompute each decoder
     layer in the backward (``lm.run_layers``), JAX's default; the
     encoder keeps its activations, as in JAX."""
     x = _embed(params, tokens, cfg)
@@ -238,7 +241,8 @@ def loss_fn(params: EncDecLM, batch, cfg: ModelConfig, *,
             remat: bool = True):
     """batch: {"frames": (B,F,d), "tokens": (B,S)} -> (loss, metrics):
     the mean next-token cross-entropy over tokens 1 .. S-1 (aux 0).
-    Attention runs on the plain path, as in JAX training.  ``remat``:
+    Attention runs through ``layers.policy_sdpa`` (the module's note).
+    ``remat``:
     ``decode_forward``'s."""
     tokens = batch["tokens"]
     enc_out = encode(params, batch["frames"], cfg)

@@ -466,7 +466,20 @@ def policy_sdpa(q, k, v, cfg: ModelConfig, *, causal: bool, window=None,
     torch 2.11); the output stays laid out so, and ``out_project`` moves
     the merged heads to the o weight's rows.  Fewer query rows than
     model cards (a decode step's token), plain tensors and a mesh
-    without a model axis run on the layout they come in."""
+    without a model axis run on the layout they come in.
+
+    Training on the card: where autograd records on plain CUDA bf16
+    tensors of hd 64 or 128, causal with no window, attention takes the
+    Hopper kernels' forward and backward (``flash_attention.ops.
+    takes_train_kernel``, ``flash_attention_train``), never a score
+    tensor; other CUDA training calls stay here and are counted
+    (``ops.train_plain_calls``).  The CPU and the meta device always
+    stay here."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    if flash_ops.takes_train_kernel(q, k, v, causal=causal, window=window):
+        return flash_ops.flash_attention_train(q, k, v)
+    flash_ops.count_plain_train(q)
+
     def attend(q, k, v, q_offset=0):
         if banded:
             return sdpa_banded(q, k, v, window=window, q_offset=q_offset,

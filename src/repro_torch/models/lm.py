@@ -47,7 +47,10 @@ Training holds the parameters as a flat ``{name: tensor}`` dict keyed as
 runs the free functions below on such a dict through
 ``torch.func.functional_call`` and a parameter-free template
 (``template``), so gradients reach the dict's tensors.  Training
-attention is the plain ``sdpa``, as in the JAX package's training.
+attention is the plain ``sdpa``, as in the JAX package's training,
+except on the card, where causal bf16 attention of hd 64 or 128 with no
+window takes the flash kernels' forward and backward
+(``layers.policy_sdpa``).
 """
 from __future__ import annotations
 
@@ -506,8 +509,11 @@ def loss_fn(params: DecoderLM, batch, cfg: ModelConfig, *,
     without MoE).
     ``logit_chunk``: compute the CE in sequence chunks of this size.
     ``remat``: recompute each layer in the backward (``backbone``).
-    Attention runs on the plain path (JAX training builds its loss with
-    ``use_kernels=False``; the flash kernel has no backward)."""
+    Attention runs through ``layers.policy_sdpa``, as JAX training
+    builds its loss with ``use_kernels=False``: plain ``sdpa`` on the CPU
+    and wherever the flash kernels' training route does not apply, that
+    route on the card (causal bf16 attention of hd 64 or 128 with no
+    window, ``flash_attention.ops.takes_train_kernel``)."""
     tokens = batch["tokens"]
     prefix = batch.get("prefix_emb")
     P = 0 if prefix is None else prefix.shape[1]
