@@ -6,6 +6,7 @@ import dataclasses
 from repro_torch.configs.base import (
     INPUT_SHAPES,
     AdLoCoConfig,
+    DeepseekV2Config,
     InputShape,
     ModelConfig,
     MoEConfig,
@@ -24,6 +25,7 @@ from repro_torch.configs import (  # noqa: E402
     whisper_small,
     falcon_mamba_7b,
     microllama_300m,
+    deepseek_v2_lite,
 )
 
 ARCH_REGISTRY: dict[str, ModelConfig] = {
@@ -41,6 +43,13 @@ ARCH_REGISTRY: dict[str, ModelConfig] = {
         falcon_mamba_7b,
         microllama_300m,
     )
+}
+
+# Architectures of the port alone, which the JAX package does not run:
+# ``get_config`` and ``--arch`` look here after ``ARCH_REGISTRY``, which
+# stays the JAX package's registry entry for entry.
+PORT_ARCHS: dict[str, ModelConfig] = {
+    m.CONFIG.name: m.CONFIG for m in (deepseek_v2_lite,)
 }
 
 # The ten assigned architectures (microllama is the paper's own extra).
@@ -63,12 +72,11 @@ LONG_CONTEXT_ARCHS = {"gemma3-4b", "hymba-1.5b", "falcon-mamba-7b"}
 
 
 def get_config(name: str) -> ModelConfig:
-    try:
-        return ARCH_REGISTRY[name]
-    except KeyError:
-        raise KeyError(
-            f"unknown arch {name!r}; available: {sorted(ARCH_REGISTRY)}"
-        ) from None
+    cfg = ARCH_REGISTRY.get(name) or PORT_ARCHS.get(name)
+    if cfg is None:
+        raise KeyError(f"unknown arch {name!r}; available: "
+                       f"{sorted(ARCH_REGISTRY) + sorted(PORT_ARCHS)}")
+    return cfg
 
 
 def reduced(cfg: ModelConfig) -> ModelConfig:
@@ -93,7 +101,7 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
     ssm = None
     if cfg.ssm is not None:
         ssm = dataclasses.replace(cfg.ssm, state_dim=8, conv_dim=4, expand=2)
-    return dataclasses.replace(
+    small = dataclasses.replace(
         cfg,
         name=cfg.name + "-smoke",
         num_layers=2,
@@ -110,6 +118,14 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         ssm=ssm,
         dtype="float32",
     )
+    if isinstance(cfg, DeepseekV2Config):
+        small = dataclasses.replace(
+            small, kv_lora_rank=min(cfg.kv_lora_rank, 32),
+            qk_nope_head_dim=min(cfg.qk_nope_head_dim, 32),
+            qk_rope_head_dim=min(cfg.qk_rope_head_dim, 16),
+            v_head_dim=min(cfg.v_head_dim, 32),
+            dense_d_ff=min(cfg.dense_d_ff, 512), experts_held=None)
+    return small
 
 
 __all__ = [
@@ -118,9 +134,11 @@ __all__ = [
     "LONG_CONTEXT_ARCHS",
     "INPUT_SHAPES",
     "AdLoCoConfig",
+    "DeepseekV2Config",
     "InputShape",
     "ModelConfig",
     "MoEConfig",
+    "PORT_ARCHS",
     "SSMConfig",
     "get_config",
     "reduced",

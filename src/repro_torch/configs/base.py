@@ -174,6 +174,66 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class DeepseekV2Config(ModelConfig):
+    """DeepSeek-V2's decoder (arXiv:2405.04434), a record of the port
+    alone (the JAX package has no such architecture, and the shared
+    records stay field for field as its own): multi-head latent
+    attention (MLA), ``first_k_dense`` leading SwiGLU layers of width
+    ``dense_d_ff`` and MoE layers after them.
+
+    MLA per token x, H heads: q = x Wq split per head into a no-rope
+    part (``qk_nope_head_dim``) and a rope part (``qk_rope_head_dim``);
+    [c ; k_r] = x Wkv_a with c of ``kv_lora_rank``; c = RMSNorm(c);
+    [k_nope ; v] = c Wkv_b per head (v of ``v_head_dim``); k = [k_nope ;
+    RoPE(k_r) on every head], q = [q_nope ; RoPE(q_rope)]; causal
+    softmax of q k^T / sqrt(nope + rope) over v, then Wo.
+
+    ``norm_topk``: renormalise the top-k router weights (False: the raw
+    softmax probabilities weight the experts).  ``experts_held``: the
+    expert ids whose weights this layer holds (None: all), as one chip
+    of an expert-parallel group holds its share: the router keeps all
+    ``moe.num_experts`` outputs and its top-k, and the layer adds only
+    its held experts' part of the result (``layers.moe_block``)."""
+
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    first_k_dense: int = 0
+    dense_d_ff: int = 0
+    norm_topk: bool = True
+    experts_held: Optional[range] = None
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+    @property
+    def held(self) -> range:
+        return (range(self.moe.num_experts) if self.experts_held is None
+                else self.experts_held)
+
+    def mla_params(self) -> int:
+        d, H, r = self.d_model, self.num_heads, self.kv_lora_rank
+        return (d * H * self.qk_head_dim + d * (r + self.qk_rope_head_dim)
+                + r + r * H * (self.qk_nope_head_dim + self.v_head_dim)
+                + H * self.v_head_dim * d)
+
+    def param_count(self, active_only: bool = False) -> int:
+        """Parameters held here (``active_only``: each token's share, its
+        top-k experts in place of the held ones)."""
+        d, mc = self.d_model, self.moe
+        de = mc.d_expert or self.d_ff
+        experts = mc.top_k if active_only else len(self.held)
+        moe = (experts + mc.num_shared) * 3 * d * de + d * mc.num_experts
+        n_dense = min(self.first_k_dense, self.num_layers)
+        layer = self.mla_params() + 2 * d
+        return (self.vocab_size * d * (1 if self.tie_embeddings else 2) + d
+                + self.num_layers * layer + n_dense * 3 * d * self.dense_d_ff
+                + (self.num_layers - n_dense) * moe)
+
+
+@dataclass(frozen=True)
 class InputShape:
     name: str
     seq_len: int

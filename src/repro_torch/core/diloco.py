@@ -9,17 +9,17 @@ workers and the outer step from the same ``x_start``).
 
 Where the port adds to the JAX package: an inner step called inside
 ``step_spans(span)`` opens ``forward``, ``backward`` and ``adamw``
-through ``span(name)`` (``TrainerRound`` passes its ``PhaseClock``'s).
+through ``span(name)`` (``TrainerRound`` passes its ``PhaseClock``'s),
+and the model's layers open theirs inside them.
 """
 from __future__ import annotations
 
 import contextlib
-import contextvars
 from typing import Callable, Dict, List, Tuple
 
 import torch
 
-from repro_torch import optim
+from repro_torch import optim, spans
 from repro_torch.core.switch import ExecutionPlan
 
 Params = Dict[str, torch.Tensor]
@@ -29,22 +29,15 @@ def _no_span(name: str):
     return contextlib.nullcontext()
 
 
-# Set by ``step_spans`` for the inner steps that run inside it.
-_STEP_SPAN = contextvars.ContextVar("inner_step_span", default=_no_span)
-
-
-@contextlib.contextmanager
 def step_spans(span: Callable):
     """Within it, every step that ``make_inner_step`` built opens its
-    spans through ``span(name)``, a context manager factory.  A scope
-    rather than an argument, so that ``make_inner_step(loss_fn,
-    inner_opt, accum_steps)`` keeps the signature that code wrapping it
-    relies on (``bench/tests/test_bench_faults.py``)."""
-    tok = _STEP_SPAN.set(span)
-    try:
-        yield
-    finally:
-        _STEP_SPAN.reset(tok)
+    spans through ``span(name)``, a context manager factory, and so do
+    the model's layers (``mla``, ``moe``): ``repro_torch.spans`` holds
+    the factory.  A scope rather than an argument, so that
+    ``make_inner_step(loss_fn, inner_opt, accum_steps)`` keeps the
+    signature that code wrapping it relies on
+    (``bench/tests/test_bench_faults.py``)."""
+    return spans.opened_by(span)
 
 
 def value_and_grad(loss_fn: Callable, params: Params, batch,
@@ -87,15 +80,15 @@ def make_inner_step(loss_fn: Callable, inner_opt: optim.Optimizer,
             return (optim.apply_updates(params, updates, consume=True),
                     opt_state)
 
+    span = spans.span
+
     def step_noaccum(params, opt_state, batch):
-        span = _STEP_SPAN.get()
         mb = {k: v[0] for k, v in batch.items()}
         loss, _, grads = value_and_grad(loss_fn, params, mb, span)
         params, opt_state = update(span, grads, opt_state, params)
         return params, opt_state, loss, grads
 
     def step(params, opt_state, batch):
-        span = _STEP_SPAN.get()
         # zeros_like keeps a sharded (DTensor) parameter's layout
         g_sum = {k: torch.zeros_like(p, dtype=torch.float32)
                  for k, p in params.items()}

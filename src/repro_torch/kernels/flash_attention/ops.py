@@ -78,13 +78,15 @@ def takes_train_kernel(q, k, v, *, causal: bool, window=None,
                        q_offset: int = 0) -> bool:
     """The training route's rule, by what the input shows: autograd
     records and q requires grad; q, k, v plain (not DTensor) CUDA bf16;
-    hd in ``kernel.TRAIN_HEAD_DIMS``; causal with no window (None or
+    one head width for q, k and v (MLA's v is narrower: q/k 192, v 128),
+    in ``kernel.TRAIN_HEAD_DIMS``; causal with no window (None or
     GLOBAL_WINDOW); Sq == Sk and q_offset 0."""
     return (records_cuda_grad(q) and causal and q_offset == 0
             and not any(is_sharded(t) for t in (q, k, v))
             and all(t.device == q.device and t.dtype == torch.bfloat16
                     for t in (q, k, v))
             and q.shape[-1] in TRAIN_HEAD_DIMS
+            and k.shape[-1] == v.shape[-1] == q.shape[-1]
             and q.shape[1] == k.shape[1]
             and (window is None or normalize_window(window) == GLOBAL_WINDOW))
 

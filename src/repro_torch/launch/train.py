@@ -34,7 +34,8 @@ import numpy as np
 
 from repro_torch import models, resolve_device
 from repro_torch.checkpoint import latest_step, save_train_state
-from repro_torch.configs import ARCH_REGISTRY, get_config, reduced
+from repro_torch.configs import (ARCH_REGISTRY, PORT_ARCHS, get_config,
+                                  reduced)
 from repro_torch.configs.base import AdLoCoConfig
 from repro_torch.core import train_adloco
 from repro_torch.data import make_shard_streams
@@ -50,7 +51,7 @@ def build_loss_fn(cfg, *, logit_chunk=None):
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", default="microllama-300m",
-                    choices=sorted(ARCH_REGISTRY))
+                    choices=sorted(ARCH_REGISTRY) + sorted(PORT_ARCHS))
     ap.add_argument("--reduced", action="store_true",
                     help="2-layer reduced variant (CPU-friendly)")
     ap.add_argument("--num-layers", type=int, default=None,

@@ -2,7 +2,9 @@
 
 Port of ``repro/models/layers.py`` for every family the port runs
 (attention, SwiGLU MLP, the encoder-decoder's GELU MLP, the
-capacity-dispatched MoE block, the Mamba-1 selective SSM): plain
+capacity-dispatched MoE block, the Mamba-1 selective SSM), and beyond
+it DeepSeek-V2's latent attention (``mla_attention``) and a MoE layer
+that holds a share of the experts (``held_experts``): plain
 functions on tensors, with a parameter group ``p`` passed as a mapping
 (an ``nn.ParameterDict`` or a dict of tensors).  Weights keep the JAX
 package's ``(d_in, d_out)`` orientation, so every projection is
@@ -28,7 +30,8 @@ import torch.nn.functional as F
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import Partial, Replicate, Shard
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch import spans
+from repro_torch.configs.base import DeepseekV2Config, ModelConfig
 from repro_torch.sharding import (_from_shards, constrain, data_axes,
                                   flattenable, full, is_sharded, lay_out,
                                   on_shards, pin, pin_grad, reduced,
@@ -342,10 +345,12 @@ def qkv_project(p, x, cfg: ModelConfig, positions):
 def sdpa(q, k, v, *, causal: bool, window=None, q_offset: int = 0):
     """Plain scaled-dot-product attention with GQA.
 
-    q: (B,Sq,H,hd), k/v: (B,Sk,Hk,hd).  ``window`` limits attention to
-    the last ``window`` keys; None or GLOBAL_WINDOW = full.  The softmax
-    runs in f32 and its probabilities are cast to q's dtype before the
-    PV product, as in the JAX package.
+    q/k: (B,S,H or Hk,hd), v: (B,Sk,Hk,hv); the output (B,Sq,H,hv) takes
+    v's head width, which MLA makes narrower than q's and k's (the
+    scale stays 1/sqrt(hd)).  ``window`` limits attention to the last
+    ``window`` keys; None or GLOBAL_WINDOW = full.  The softmax runs in
+    f32 and its probabilities are cast to q's dtype before the PV
+    product, as in the JAX package.
     """
     B, Sq, H, hd = q.shape
     Sk, Hk = k.shape[1], k.shape[2]
@@ -365,7 +370,8 @@ def sdpa(q, k, v, *, causal: bool, window=None, q_offset: int = 0):
     # a DTensor output's gradient laid out as the output (``pin_grad``):
     # left free, its partial sums are reduced or scattered as the torch
     # version pleases, and the backward's products split otherwise
-    return whole_groups_in_grad(pin_grad(out.reshape(B, Sq, H, hd)), 2, Hk)
+    return whole_groups_in_grad(pin_grad(out.reshape(B, Sq, H, v.shape[-1])),
+                                2, Hk)
 
 
 def _softmax(logits):
@@ -500,6 +506,47 @@ def policy_sdpa(q, k, v, cfg: ModelConfig, *, causal: bool, window=None,
                 for t in (k, v))
     heads = ("batch", None, "model", None)
     return on_shards(attend, *(pin(t, *heads) for t in (q, k, v)))
+
+
+def init_mla(gen: torch.Generator, cfg: DeepseekV2Config, dtype):
+    """MLA's weights (``DeepseekV2Config``): q (d, H (nope + rope)),
+    kv_a (d, rank + rope), kv_norm (rank,) zeros, kv_b (rank, H (nope +
+    v)) and o (H v, d)."""
+    d, H, r = cfg.d_model, cfg.num_heads, cfg.kv_lora_rank
+    return {
+        "q": dense_init(gen, (d, H * cfg.qk_head_dim), dtype=dtype),
+        "kv_a": dense_init(gen, (d, r + cfg.qk_rope_head_dim), dtype=dtype),
+        "kv_norm": torch.zeros((r,), dtype=dtype, device=gen.device),
+        "kv_b": dense_init(gen, (r, H * (cfg.qk_nope_head_dim
+                                         + cfg.v_head_dim)), dtype=dtype),
+        "o": dense_init(gen, (H * cfg.v_head_dim, d), dtype=dtype),
+    }
+
+
+def mla_attention(p, x, cfg: DeepseekV2Config, positions):
+    """Multi-head latent attention (DeepSeek-V2), x (B,S,d) -> (B,S,d):
+    the latent c = RMSNorm(x Wkv_a's first ``kv_lora_rank`` columns)
+    gives each head's k_nope and v through kv_b; the decoupled rope key
+    (kv_a's last ``qk_rope_head_dim`` columns) is shared by every head;
+    q = x Wq per head as [q_nope ; q_rope]; rotary on the rope parts
+    alone; causal attention through ``policy_sdpa`` at q/k width nope +
+    rope and v width ``v_head_dim`` (the flash training route takes one
+    width only, so this stays plain and is counted); o on the merged
+    heads.  Opens the span ``mla`` (``repro_torch.spans``)."""
+    B, S, _ = x.shape
+    H, r = cfg.num_heads, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    with spans.span("mla"):
+        q = (x @ p["q"]).reshape(B, S, H, dn + dr)
+        ckr = x @ p["kv_a"]
+        c = rms_norm(ckr[..., :r], p["kv_norm"], cfg.rms_eps)
+        kv = (c @ p["kv_b"]).reshape(B, S, H, dn + dv)
+        cos, sin = rope_cos_sin(positions, dr, cfg.rope_theta)
+        q = torch.cat([q[..., :dn], apply_rope(q[..., dn:], cos, sin)], -1)
+        k_r = apply_rope(ckr[..., None, r:], cos, sin).expand(B, S, H, dr)
+        k = torch.cat([kv[..., :dn], k_r], -1)
+        out = policy_sdpa(q, k, kv[..., dn:], cfg, causal=True)
+        return out_project(out, p["o"])
 
 
 def model_axis_size(x) -> int:
@@ -731,14 +778,17 @@ MOE_F32_LEAVES = ("router",)
 
 
 def init_moe(gen: torch.Generator, cfg: ModelConfig, dtype):
+    """The router over all E experts; gate, up and down of the experts
+    the layer holds (``held_experts``)."""
     mc = cfg.moe
     d, E = cfg.d_model, mc.num_experts
+    Eh = len(held_experts(cfg))
     de = mc.d_expert or cfg.d_ff
     p = {
         "router": dense_init(gen, (d, E), dtype=torch.float32),
-        "gate": dense_init(gen, (E, d, de), dtype=dtype),
-        "up": dense_init(gen, (E, d, de), dtype=dtype),
-        "down": dense_init(gen, (E, de, d), dtype=dtype),
+        "gate": dense_init(gen, (Eh, d, de), dtype=dtype),
+        "up": dense_init(gen, (Eh, d, de), dtype=dtype),
+        "down": dense_init(gen, (Eh, de, d), dtype=dtype),
     }
     if mc.num_shared:
         ns = mc.num_shared
@@ -748,15 +798,25 @@ def init_moe(gen: torch.Generator, cfg: ModelConfig, dtype):
     return p
 
 
+def held_experts(cfg: ModelConfig) -> range:
+    """The experts a MoE layer holds: a share of them where the config
+    says so (``DeepseekV2Config.experts_held``), else every one (every
+    config of the JAX package)."""
+    return (cfg.held if isinstance(cfg, DeepseekV2Config)
+            else range(cfg.moe.num_experts))
+
+
 class MoERoute(NamedTuple):
     """The routing of T tokens' T*K assignments (token t's k-th choice
     is assignment t*K + k)."""
     probs: torch.Tensor      # (T, E) f32 router softmax
-    topw: torch.Tensor       # (T, K) f32 top-k weights, renormalised
+    topw: torch.Tensor       # (T, K) f32 top-k weights (renormalised
+    #                          unless the config says not)
     topi: torch.Tensor       # (T, K) expert of each choice
     capacity: int            # C: slots per expert
-    slot: torch.Tensor       # (T*K,) expert * C + rank, or E*C if dropped
-    kept: torch.Tensor       # (T*K,) bool: rank within its expert < C
+    slot: torch.Tensor       # (T*K,) held expert's index * C + rank, or
+    #                          (experts held) * C if dropped or not held
+    kept: torch.Tensor       # (T*K,) bool: held, and rank < C
 
 
 def moe_route(p, x, cfg: ModelConfig, *,
@@ -764,7 +824,11 @@ def moe_route(p, x, cfg: ModelConfig, *,
     """Route x (T, d): f32 router logits, top-k of the softmax, and each
     assignment's rank within its expert in a STABLE sort by expert id
     (so among one expert's assignments the earlier token ranks first).
-    C = max(K, ceil(T*K/E * capacity_factor)) from this call's T."""
+    C = max(K, ceil(T*K/E * capacity_factor)) from this call's T.  A
+    layer that holds a share of the experts (``held_experts``) routes
+    over all E alike, and only its held experts' assignments take a
+    slot: each held expert's ranks, and so its drops, are the whole
+    layer's."""
     mc = cfg.moe
     T = x.shape[0]
     E, K = mc.num_experts, mc.top_k
@@ -772,7 +836,8 @@ def moe_route(p, x, cfg: ModelConfig, *,
     logits = x.float() @ p["router"].float()
     probs = torch.softmax(logits, dim=-1)
     topw, topi = torch.topk(probs, K, dim=-1)
-    topw = topw / torch.sum(topw, dim=-1, keepdim=True)
+    if not isinstance(cfg, DeepseekV2Config) or cfg.norm_topk:
+        topw = topw / torch.sum(topw, dim=-1, keepdim=True)
 
     # the stable sort couples every token of the group: a sharded
     # (DTensor) choice tensor is gathered whole first
@@ -783,7 +848,10 @@ def moe_route(p, x, cfg: ModelConfig, *,
     idx = torch.arange(T * K, device=x.device)
     rank = idx - torch.searchsorted(sorted_e, sorted_e, side="left")
     valid = rank < C
-    dest = torch.where(valid, sorted_e * C + rank, E * C)
+    held = held_experts(cfg)
+    valid &= (sorted_e >= held.start) & (sorted_e < held.stop)
+    dest = torch.where(valid, (sorted_e - held.start) * C + rank,
+                       len(held) * C)
     slot = torch.empty_like(dest)
     slot[order] = dest
     kept = torch.empty_like(valid)
@@ -808,6 +876,40 @@ def moe_block(p, x, cfg: ModelConfig, *, capacity_factor: float = 1.25,
                            decode=decode)
 
 
+# Assignments routed by the layers that hold a share of the experts
+# (``held_experts``), counted outside any backward pass, so that a remat
+# recompute counts nothing again: ``moe_routed`` all of them (host), and
+# on the device those routed to a held expert and those of them kept
+# within capacity (``moe_counts`` reads them).
+moe_routed = 0
+_moe_held_kept: Optional[torch.Tensor] = None
+
+
+def _count_routes(r: MoERoute, held: range) -> None:
+    global moe_routed, _moe_held_kept
+    if torch._C._current_graph_task_id() != -1:
+        return
+    moe_routed += r.topi.numel()
+    c = torch.stack([((r.topi >= held.start) & (r.topi < held.stop)).sum(),
+                     r.kept.sum()])
+    _moe_held_kept = c if _moe_held_kept is None else _moe_held_kept + c
+
+
+def moe_counts() -> dict:
+    """The assignments counted since ``reset_moe_counts``: routed (all),
+    held (to a held expert), kept (held, within capacity) and dropped
+    (held, over capacity).  Reads the device (a synchronize)."""
+    held, kept = ((0, 0) if _moe_held_kept is None
+                  else _moe_held_kept.tolist())
+    return {"routed": moe_routed, "held": held, "kept": kept,
+            "dropped": held - kept}
+
+
+def reset_moe_counts() -> None:
+    global moe_routed, _moe_held_kept
+    moe_routed, _moe_held_kept = 0, None
+
+
 def _moe_block_flat(p, x, cfg: ModelConfig, *,
                     capacity_factor: float = 1.25, decode: bool = False):
     """x: (T, d) -> (y (T, d), aux_loss).  Sort-based capacity dispatch:
@@ -815,24 +917,37 @@ def _moe_block_flat(p, x, cfg: ModelConfig, *,
     zero), each expert's SwiGLU runs as one batched product per matrix,
     and each assignment's output comes back weighted by its top-k weight
     (dropped assignments give 0).  Shared experts see every token.  The
-    load-balance aux counts every assignment, dropped ones too."""
+    load-balance aux counts every assignment, dropped ones too.  A layer
+    that holds a share of the experts (``held_experts``: gate, up and
+    down hold those experts alone) has a buffer of their slots only: an
+    assignment to an expert it does not hold adds nothing, as one chip
+    of an expert-parallel group adds its own experts' part of the result
+    with no exchange; the aux still counts all E experts, which every
+    chip of the group can do alike."""
     mc = cfg.moe
     T, d = x.shape
     E, K = mc.num_experts, mc.top_k
     r = moe_route(p, x, cfg, capacity_factor=capacity_factor)
     C = r.capacity
+    held = held_experts(cfg)
+    Eh = len(held)                             # the experts with slots
+    if isinstance(cfg, DeepseekV2Config):
+        _count_routes(r, held)
 
     # kept assignments fill their (unique) slots; dropped ones land in
-    # an extra slot E*C that is cut off (no data-dependent shapes)
-    tok = torch.arange(T * K, device=r.slot.device) // K
-    slot_token = torch.zeros((E * C + 1,), dtype=torch.long,
-                             device=r.slot.device)
-    slot_token = slot_token.scatter_(0, r.slot, tok)[:E * C]
-    slot_used = torch.zeros((E * C + 1,), dtype=x.dtype, device=r.slot.device)
+    # an extra slot Eh*C that is cut off (no data-dependent shapes).
+    # Unused slots read tokens in turn (a zero contribution), so that the
+    # gather's backward adds no long run into one row
+    idx = torch.arange(T * K, device=r.slot.device)
+    tok = idx // K
+    slot_token = torch.arange(Eh * C + 1, device=r.slot.device) % T
+    slot_token = slot_token.scatter_(0, r.slot, tok)[:Eh * C]
+    slot_used = torch.zeros((Eh * C + 1,), dtype=x.dtype,
+                            device=r.slot.device)
     slot_used = slot_used.scatter_(0, r.slot, torch.ones_like(
-        r.slot, dtype=x.dtype))[:E * C]
-    # gathered straight into (E, C) and back out of it by (expert, slot)
-    # indices: a sharded (E*C, d) would have to be viewed as (E, C, d)
+        r.slot, dtype=x.dtype))[:Eh * C]
+    # gathered straight into (E, C): a sharded (E*C, d) would have to be
+    # viewed as (E, C, d)
     if decode:
         # a decode step's few slots, on every card, the products split
         # over the data axes along d (the contraction of gate and up,
@@ -840,14 +955,14 @@ def _moe_block_flat(p, x, cfg: ModelConfig, *,
         # an even split for any E and C, laid out here because no policy
         # is open in decode and DTensor's own layout of the gather
         # differs between torch versions
-        xe = lay_out(x, None, "batch")[slot_token.reshape(E, C)] \
-            * slot_used.reshape(E, C, 1)
+        xe = lay_out(x, None, "batch")[slot_token.reshape(Eh, C)] \
+            * slot_used.reshape(Eh, C, 1)
         xe = lay_out(xe, None, None, "batch")
         h = F.silu(lay_out(torch.bmm(xe, p["gate"]), None, None, "model")) \
             * lay_out(torch.bmm(xe, p["up"]), None, None, "model")
         ye = torch.bmm(h, lay_out(p["down"], None, "model", "batch"))
     else:
-        xe = x[slot_token.reshape(E, C)] * slot_used.reshape(E, C, 1)
+        xe = x[slot_token.reshape(Eh, C)] * slot_used.reshape(Eh, C, 1)
         # under the sharding policy the capacity slots split over the
         # data axes (each card runs its share of every expert's slots),
         # in the products too: left free, the FSDP shards of the expert
@@ -864,9 +979,17 @@ def _moe_block_flat(p, x, cfg: ModelConfig, *,
         ye = pin(torch.bmm(h, p["down"]), *slots)
 
     w = r.topw.reshape(-1, 1).to(x.dtype) * r.kept.to(x.dtype)[:, None]
-    s = torch.clamp(r.slot, max=E * C - 1)
-    y = (ye[s // C, s % C] * w).reshape(T, K, d)
-    y = y.sum(dim=1)
+    # an assignment not kept (dropped, or to an expert held elsewhere:
+    # most of them in a held share) has weight 0 and reads the slots in
+    # turn, not one shared slot, whose gradient the backward would add
+    # up row after row.  One index into the flat (E*C, d) view gathers in
+    # half the time of (expert, slot) index pairs; a sharded ye keeps the
+    # pairs, as its flat view adds work to the split step (the dry run's
+    # even split of a train step)
+    s = torch.where(r.kept, r.slot, idx % (Eh * C))
+    ys = (ye[s // C, s % C] if is_sharded(ye)
+          else ye.reshape(Eh * C, d)[s])
+    y = (ys * w).reshape(T, K, d).sum(dim=1)
 
     # load-balance aux loss (Switch-style).  Taken before the shared
     # experts, so that a recompute in the backward (``lm.run_layers``)

@@ -8,6 +8,11 @@ block per layer, attention-free: falcon-mamba-7b), ``hybrid``
 averaged, then the MLP: hymba-1.5b) and ``vlm`` (the dense decoder
 with P stub patch embeddings ``prefix_emb`` (B, P, d) in front of the
 token embeddings, at positions 0 .. P-1: phi-3-vision-4.2b).
+A ``DeepseekV2Config`` (``moe``, the port's alone) runs latent
+attention (``layers.mla_attention``) in every layer, a SwiGLU MLP in
+its first ``first_k_dense`` layers and the MoE block, holding its
+``experts_held``, in the others; it trains, and its serving entry
+points refuse it (no latent cache).
 ``DecoderLM`` holds the parameters (an ``nn.ModuleList`` of
 ``DecoderLayer``s, weights in JAX's ``(d_in, d_out)`` orientation); the
 entry points below are plain functions over it, as in the JAX package,
@@ -62,8 +67,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch import resolve_device
-from repro_torch.configs.base import ModelConfig
+from repro_torch import resolve_device, spans
+from repro_torch.configs.base import DeepseekV2Config, ModelConfig
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import layers as L
 from repro_torch.sharding import (constrain, is_sharded, pin, replicated,
@@ -205,23 +210,32 @@ def template(flat: Dict[str, torch.Tensor], cfg: ModelConfig) -> DecoderLM:
 # init
 # --------------------------------------------------------------------
 
-def init_layer(gen: torch.Generator, cfg: ModelConfig) -> Dict:
+def _latent(cfg: ModelConfig) -> bool:
+    """DeepSeek-V2's decoder: MLA attention, leading dense layers."""
+    return isinstance(cfg, DeepseekV2Config)
+
+
+def init_layer(gen: torch.Generator, cfg: ModelConfig, i: int = 0) -> Dict:
+    """Layer ``i``'s parameter tree."""
     dt, dev, d = _dtype(cfg), gen.device, cfg.d_model
     if cfg.arch_type == "ssm":
         return {"norm": torch.zeros((d,), dtype=dt, device=dev),
                 "mamba": L.init_mamba(gen, cfg, dt)}
     p = {"attn_norm": torch.zeros((d,), dtype=dt, device=dev),
-         "attn": L.init_attention(gen, cfg, dt)}
+         "attn": (L.init_mla if _latent(cfg) else L.init_attention)(
+             gen, cfg, dt)}
     if cfg.hybrid:
         p["mamba"] = L.init_mamba(gen, cfg, dt)
     p["mlp_norm"] = torch.zeros((d,), dtype=dt, device=dev)
-    if cfg.moe is not None:
+    dense = _latent(cfg) and i < cfg.first_k_dense
+    if cfg.moe is not None and not dense:
         p["moe"] = L.init_moe(gen, cfg, dt)
         return p
+    d_ff = cfg.dense_d_ff if dense else cfg.d_ff
     p.update({
-        "gate": L.dense_init(gen, (d, cfg.d_ff), dtype=dt),
-        "up": L.dense_init(gen, (d, cfg.d_ff), dtype=dt),
-        "down": L.dense_init(gen, (cfg.d_ff, d), dtype=dt),
+        "gate": L.dense_init(gen, (d, d_ff), dtype=dt),
+        "up": L.dense_init(gen, (d, d_ff), dtype=dt),
+        "down": L.dense_init(gen, (d_ff, d), dtype=dt),
     })
     return p
 
@@ -239,7 +253,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     tree = {
         "embed": L.dense_init(gen, (cfg.vocab_size, cfg.d_model),
                               scale=0.02, dtype=dt),
-        "layers": [init_layer(gen, cfg) for _ in range(cfg.num_layers)],
+        "layers": [init_layer(gen, cfg, i) for i in range(cfg.num_layers)],
         "final_norm": torch.zeros((cfg.d_model,), dtype=dt, device=dev),
     }
     if not cfg.tie_embeddings:
@@ -307,8 +321,15 @@ def _ffn(layer: DecoderLayer, x, cfg: ModelConfig, grouped: bool,
     # then gather the weights and the activations both
     h2 = constrain(L.rms_norm(x, layer.mlp_norm, cfg.rms_eps),
                    "batch", None, None)
-    if cfg.moe is None:
+    if cfg.moe is None or not hasattr(layer, "moe"):
+        # a dense model, or a leading dense layer (``first_k_dense``)
         return L.swiglu(h2, layer.gate, layer.up, layer.down), None
+    with spans.span("moe"):
+        return _moe(layer, h2, cfg, grouped, decode)
+
+
+def _moe(layer: DecoderLayer, h2, cfg: ModelConfig, grouped: bool,
+         decode: bool):
     if grouped and cfg.moe.dispatch == "grouped":
         return L.moe_block(layer.moe, h2, cfg)
     # the tokens as rows, batch-over-data both ways: the dispatch's
@@ -343,9 +364,12 @@ def _layer_apply(layer: DecoderLayer, x, cfg: ModelConfig, is_global: bool,
                                    use_kernel=use_kernels), None
     window, banded = L.plan_window(cfg, is_global, x.shape[1])
     h = L.rms_norm(x, layer.attn_norm, cfg.rms_eps)
-    a = L.attention(layer.attn, h, cfg, causal=True, window=window,
-                    positions=positions, use_kernel=use_kernels,
-                    banded=banded)
+    if _latent(cfg):
+        a = L.mla_attention(layer.attn, h, cfg, positions)
+    else:
+        a = L.attention(layer.attn, h, cfg, causal=True, window=window,
+                        positions=positions, use_kernel=use_kernels,
+                        banded=banded)
     if cfg.hybrid:
         m = L.mamba_forward(layer.mamba, h, cfg, use_kernel=use_kernels)
         a = 0.5 * (a + m)          # Hymba's parallel-head mean fusion
@@ -533,6 +557,16 @@ def loss_fn(params: DecoderLM, batch, cfg: ModelConfig, *,
     return ce + aux, {"ce": ce, "aux": aux}
 
 
+def _no_latent_serving(cfg: ModelConfig, what: str) -> None:
+    """MLA serves from a latent cache that the port does not have yet:
+    its prefill and its caches refuse the config (so decoding, which
+    needs a cache, cannot start)."""
+    if _latent(cfg):
+        raise NotImplementedError(
+            f"{what}: {cfg.name} has latent attention (MLA), which the "
+            "port trains but does not serve: there is no latent KV cache")
+
+
 def _ring_scatter(kv, S_total: int, C: int):
     """Place the last min(C, S_total) positions of kv (B,S,Hk,hd) into a
     (B,C,Hk,hd) ring buffer at slot p % C (position p's canonical slot).
@@ -562,6 +596,7 @@ def prefill(params: DecoderLM, tokens, cfg: ModelConfig, cache_len: int, *,
     Without it the Mamba blocks run the sequential scan
     (``layers.ssm_scan_seq``), JAX prefill's default.  The Mamba blocks
     also return their decode state from the same scan."""
+    _no_latent_serving(cfg, "prefill")
     x = constrain(_embed(params, tokens, cfg, prefix_emb), "batch", None, None)
     B, S_total = x.shape[:2]
     positions = torch.arange(S_total, device=x.device)
@@ -607,6 +642,7 @@ def prefill(params: DecoderLM, tokens, cfg: ModelConfig, cache_len: int, *,
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
                device=None) -> Dict[str, torch.Tensor]:
     check_arch(cfg)
+    _no_latent_serving(cfg, "init_cache")
     dev = resolve_device(device)
     cache = {}
     if _has_attn(cfg):
@@ -731,6 +767,7 @@ def init_paged_cache(cfg: ModelConfig, n_lanes: int, num_blocks: int,
     """Block pools (L, num_blocks + 1, block_size, Hk, hd), the last
     block scratch, for families with attention; per-lane Mamba state
     (L, n_lanes, ...) for families with a Mamba block."""
+    _no_latent_serving(cfg, "init_paged_cache")
     check_arch(cfg)
     dev = resolve_device(device)
     cache = {}
